@@ -1,0 +1,4 @@
+"""Boosting engines."""
+from .gbdt import GBDT
+
+__all__ = ["GBDT"]

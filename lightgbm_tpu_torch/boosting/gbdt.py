@@ -1,0 +1,461 @@
+"""GBDT boosting engine: the per-iteration training loop.
+
+Reference: ``GBDT::TrainOneIter`` (src/boosting/gbdt.cpp, UNVERIFIED —
+empty mount, see SURVEY.md banner): gradients from the objective →
+(GOSS subset) → train one tree → shrinkage → update train + valid scores.
+
+The port of ``lightgbm_tpu/boosting/gbdt.py`` for the main path: binary
+objective, serial learner, full-row steps and GOSS steps (masked, or with
+the compacted histogram buffer of ``tpu_goss_compact``), exact or
+quantized gradients with stochastic rounding. Scores and the binned
+matrices stay on the device across iterations; each iteration copies the
+finished tree's flat arrays to the host. ``gradients``, ``quantize`` and
+``goss_masks`` are pure functions that take their uniform draws as
+tensors; the draws come from a noise object (``utils/random.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import capabilities
+from ..config import Config
+from ..io.dataset import Dataset
+from ..learner.serial import GrowConfig, grow_tree
+from ..metric import eval_metric_rows, metrics_for_config
+from ..objective import Objective, create_objective
+from ..ops.compact import compact_rows, compaction_out_cols, plan_compaction
+from ..ops.predict import forest_predict_binned, tree_predict_binned
+from ..tree import Tree
+from ..utils import log
+from ..utils.random import TorchNoise
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pad_rows(n_rows: int, rows_per_block: int) -> int:
+    """Padded row count: whole blocks, at least one."""
+    return _ceil_to(max(n_rows, rows_per_block), rows_per_block)
+
+
+def resolve_device(device_type: str) -> torch.device:
+    """The torch device for ``device_type`` ("cuda" or "cpu"). CUDA
+    without a visible card is an error: the package never falls back to
+    the CPU unasked."""
+    if device_type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        log.fatal("device_type='cuda' (the default) needs a CUDA device and "
+                  "torch sees none; pass device_type='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+class DeviceData:
+    """Device-resident binned data + metadata for one dataset: the
+    row-major ``[n_pad, F]`` uint8 bins, optionally the feature-major
+    ``[F, n_pad]`` copy the histogram and compaction kernels read, and
+    label / weight / validity padded to ``n_pad`` rows (a multiple of
+    ``rows_per_block``). Padding rows are bin 0 with validity 0."""
+
+    def __init__(self, bins: torch.Tensor, bins_t: Optional[torch.Tensor],
+                 n: int, label: Optional[torch.Tensor],
+                 weight: Optional[torch.Tensor],
+                 init_score: Optional[np.ndarray] = None):
+        self.bins = bins
+        self.bins_t = bins_t
+        self.n = n
+        self.n_pad = bins.shape[0]
+        self.label = label
+        self.weight = weight
+        self.init_score = init_score
+        self.valid_mask = (torch.arange(self.n_pad, device=bins.device)
+                           < n).to(torch.float32)
+
+    @classmethod
+    def from_dataset(cls, ds: Dataset, rows_per_block: int,
+                     device: torch.device, transposed: bool
+                     ) -> "DeviceData":
+        ds.construct()
+        n = ds.num_data
+        n_pad = pad_rows(n, rows_per_block)
+        binned = ds.binned
+        if n_pad > n:
+            binned = np.concatenate(
+                [binned, np.zeros((n_pad - n, binned.shape[1]),
+                                  binned.dtype)])
+        bins = torch.from_numpy(np.ascontiguousarray(binned)).to(device)
+        bins_t = bins.T.contiguous() if transposed else None
+        md = ds.metadata
+
+        def pad1(a):
+            if a is None:
+                return None
+            out = np.zeros(n_pad, np.float32)
+            out[:n] = a
+            return torch.from_numpy(out).to(device)
+
+        return cls(bins, bins_t, n, pad1(md.label), pad1(md.weight),
+                   md.init_score)
+
+
+# ---------------------------------------------------------------------------
+# pure step functions (the JAX package's closures in _build_step)
+# ---------------------------------------------------------------------------
+def quantize(gk_m: torch.Tensor, hk_m: torch.Tensor,
+             mask_count: torch.Tensor, glevels: int, hlevels: int,
+             noise: Optional[Tuple[torch.Tensor, torch.Tensor]]
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradient quantization (use_quantized_grad; reference:
+    cuda_gradient_discretizer.cu): grad/hess become integer levels with
+    stochastic rounding offsets ``noise = (ng, nh)`` (None = nearest).
+    Returns (grad levels, hess levels, per-channel scale ``[3]``)."""
+    gmax = torch.max(torch.abs(gk_m))
+    hmax = torch.max(hk_m)
+    scale_g = torch.clamp(gmax / glevels, min=1e-30)
+    scale_h = torch.clamp(hmax / hlevels, min=1e-30)
+    ng, nh = noise if noise is not None else (0.0, 0.0)
+    gq = torch.round(gk_m / scale_g + ng)
+    hq = torch.round(hk_m / scale_h + nh)
+    # stochastic rounding must not resurrect masked-out rows
+    live = mask_count > 0
+    gq = torch.where(live, gq, 0.0)
+    hq = torch.where(live, hq, 0.0)
+    scale = torch.stack([scale_g, scale_h, torch.ones_like(scale_g)])
+    return gq, hq, scale
+
+
+def goss_masks(g: torch.Tensor, h: torch.Tensor, valid_mask: torch.Tensor,
+               u: torch.Tensor, k_top: int, k_rand: int, top_rate: float,
+               other_rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GOSS (goss.hpp): keep the top ``k_top`` rows by |g*h| (ties by row
+    index), sample exactly ``min(k_rand, rest)`` of the rest — the
+    smallest uniform draws ``u`` (ties by row index) — and amplify the
+    sampled rest by (1-a)/b. Returns (mask_gh, mask_count)."""
+    metric = torch.abs(g * h) * valid_mask
+    n_local = metric.shape[0]
+    n_valid = torch.sum(valid_mask)
+    k_rest = torch.clamp(n_valid - k_top, min=1.0)
+    if k_top < n_local:
+        thresh = torch.topk(metric, k_top).values[k_top - 1]
+    else:
+        thresh = torch.sort(metric).values[max(n_local - k_top, 0)]
+    valid = valid_mask > 0
+    above = (metric > thresh) & valid
+    k_need = k_top - above.sum(dtype=torch.int32)
+    tie = (metric == thresh) & valid
+    tie_rank = torch.cumsum(tie.to(torch.int32), 0, dtype=torch.int32)
+    is_top = above | (tie & (tie_rank <= k_need))
+    rest = valid & ~is_top
+    k_cap = torch.minimum(torch.tensor(float(k_rand), device=g.device),
+                          k_rest).to(torch.int32)
+    uu = torch.where(rest, u, float("inf"))
+    if 0 < k_rand < n_local:
+        u_small = torch.topk(uu, k_rand, largest=False).values
+        u_thresh = u_small[(k_cap - 1).clamp(0, k_rand - 1)]
+    elif k_rand == 0:
+        u_thresh = torch.tensor(0.0, device=g.device)
+    else:
+        u_thresh = torch.sort(uu).values[(k_cap - 1).clamp(0, n_local - 1)]
+    strictly = rest & (uu < u_thresh)
+    at_t = rest & (uu == u_thresh)
+    need = k_cap - strictly.sum(dtype=torch.int32)
+    at_rank = torch.cumsum(at_t.to(torch.int32), 0, dtype=torch.int32)
+    picked = (strictly | (at_t & (at_rank <= need))) & (k_cap > 0)
+    amp = (1.0 - top_rate) / max(other_rate, 1e-12)
+    mask_gh = is_top.to(torch.float32) + picked.to(torch.float32) * amp
+    mask_count = (is_top | picked).to(torch.float32)
+    return mask_gh, mask_count
+
+
+class GBDT:
+    """Boosting engine (reference: GBDT class, src/boosting/gbdt.cpp).
+
+    ``noise`` supplies the per-iteration uniforms (``TorchNoise`` by
+    default); tests pass an object with the same methods that replays the
+    JAX package's draws."""
+
+    def __init__(self, config: Config, train_set: Dataset, noise=None):
+        self.config = config
+        capabilities.check(config)
+        self.device = resolve_device(config.device_type)
+        self.train_set = train_set.construct()
+        if (bool(config.tpu_auto_quantize)
+                and "use_quantized_grad" not in config.raw_params
+                and not config.use_quantized_grad
+                and self.train_set.num_data
+                >= capabilities.AUTO_QUANT_MIN_ROWS
+                and str(config.objective)
+                in capabilities.AUTO_QUANTIZE_OBJECTIVES):
+            config.use_quantized_grad = True
+            log.info("tpu_auto_quantize: enabling quantized gradients for "
+                     "this training; set use_quantized_grad=false to keep "
+                     "f32")
+        self.objective: Objective = create_objective(config)
+        md = self.train_set.metadata
+        self.objective.prepare(md.label, md.weight)
+        self.metrics = metrics_for_config(config)
+        self.num_class = 1
+        self.average_output = False
+        self.models: List[Tree] = []
+        self.iter_ = 0
+        dev = self.device
+
+        n = self.train_set.num_data
+        self.rows_per_block = min(config.tpu_rows_per_block,
+                                  pad_rows(max(1, n), 256))
+        F = len(self.train_set.used_features)
+        num_bin = self.train_set.feature_num_bins()
+        self.B = max(8, _ceil_to(int(num_bin.max()) if F else 2, 8))
+        has_nan = np.array(
+            [self.train_set.bin_mappers[f].missing_type == "nan"
+             for f in self.train_set.used_features], dtype=bool)
+        self.feat_num_bin = torch.as_tensor(num_bin.astype(np.int32),
+                                            device=dev)
+        self.feat_has_nan = torch.as_tensor(has_nan, device=dev)
+        self.allowed = torch.ones(F, dtype=torch.bool, device=dev)
+        self.data = DeviceData.from_dataset(self.train_set,
+                                            self.rows_per_block, dev,
+                                            transposed=True)
+        label = md.label
+        self.init_scores = np.zeros(1, dtype=np.float64)
+        if label is not None:
+            self.init_scores[0] = self.objective.init_score(label, md.weight)
+        self.score = self._init_score(self.data)
+        self.valid_data: List[DeviceData] = []
+        self.valid_scores: List[torch.Tensor] = []
+        self.valid_names: List[str] = []
+        self.noise = noise if noise is not None else TorchNoise(
+            config.objective_seed, dev)
+
+        c = config
+        self.use_quant = bool(c.use_quantized_grad)
+        qbins = max(2, int(c.num_grad_quant_bins))
+        self.glevels = max(qbins // 2, 1)
+        self.hlevels = max(qbins - 1, 1)
+        self.use_sr = bool(c.stochastic_rounding)
+        self.grow_cfg = GrowConfig(
+            num_leaves=c.num_leaves, max_depth=c.max_depth,
+            lambda_l1=c.lambda_l1, lambda_l2=c.lambda_l2,
+            min_data_in_leaf=c.min_data_in_leaf,
+            min_sum_hessian_in_leaf=c.min_sum_hessian_in_leaf,
+            min_gain_to_split=c.min_gain_to_split,
+            max_delta_step=c.max_delta_step, num_bins=self.B,
+            leaf_batch=max(1, c.tpu_leaf_batch),
+            # the int32 accumulator must hold qbins * n_rows
+            int_hist=(self.use_quant and qbins <= 127
+                      and self.data.n_pad * qbins < 2**31))
+
+        # ---- GOSS (goss.hpp) ------------------------------------------
+        # goss.hpp truncates the DOUBLE product rate * cnt; the counts
+        # are static (the padding mask is the only row mask under GOSS)
+        self.top_rate = float(c.top_rate)
+        self.other_rate = float(c.other_rate)
+        self.goss_k_top = max(1, int(n * self.top_rate))
+        self.goss_k_rand = int(n * self.other_rate)
+        # compaction block size: <= 1024 and a divisor of n_pad
+        self.compact_rpb = math.gcd(1024, self.rows_per_block)
+        frac = self.top_rate + self.other_rate
+        self.goss_n_sub = compaction_out_cols(
+            int(np.ceil(self.data.n_pad * frac)) + 8192,
+            self.compact_rpb, self.rows_per_block)
+        self.use_goss_compact = (
+            bool(c.tpu_goss_compact) and c.data_sample_strategy == "goss"
+            and frac < 1.0 and self.compact_rpb >= 256
+            # the buffer (sampled rows + write slack) must shrink the scan
+            and self.goss_n_sub < self.data.n_pad)
+        self._stack_cache: Optional[Tuple[int, Dict, int]] = None
+
+    # ------------------------------------------------------------------
+    def _init_score(self, dd: DeviceData) -> torch.Tensor:
+        """Device ``[n_pad]`` init scores + the dataset's init_score."""
+        s0 = np.full(dd.n_pad, np.float32(self.init_scores[0]), np.float32)
+        if dd.init_score is not None:
+            s0[:dd.n] += np.asarray(dd.init_score, np.float32)
+        return torch.from_numpy(s0).to(dd.bins.device)
+
+    def add_valid(self, ds: Dataset, name: str) -> None:
+        dd = DeviceData.from_dataset(ds, self.rows_per_block, self.device,
+                                     transposed=False)
+        score = self._init_score(dd)
+        if self.models:
+            stacked, depth = self._stacked_forest()
+            raw, _ = forest_predict_binned(stacked, dd.bins,
+                                           self.feat_num_bin,
+                                           self.feat_has_nan, depth)
+            score = score + raw
+        self.valid_data.append(dd)
+        self.valid_scores.append(score)
+        self.valid_names.append(name)
+
+    # ------------------------------------------------------------------
+    def gradients(self, score: torch.Tensor):
+        d = self.data
+        return self.objective.get_gradients(score, d.label, d.weight)
+
+    def _vals(self, gk_m, hk_m, mask_count, n_rows):
+        """Histogram value rows ``[n, 3]`` + channel scale (None unless
+        quantized)."""
+        if not self.use_quant:
+            return torch.stack([gk_m, hk_m, mask_count], dim=1), None
+        draws = (self.noise.quant_uniforms(self.iter_, n_rows)
+                 if self.use_sr else None)
+        gq, hq, scale = quantize(gk_m, hk_m, mask_count, self.glevels,
+                                 self.hlevels, draws)
+        return torch.stack([gq, hq, mask_count], dim=1), scale
+
+    def _goss(self, g, h):
+        d = self.data
+        u = self.noise.goss_uniform(self.iter_, d.n_pad)
+        return goss_masks(g, h, d.valid_mask, u, self.goss_k_top,
+                          self.goss_k_rand, self.top_rate, self.other_rate)
+
+    def _step(self, goss: bool):
+        """Masked full-row step: every row is scanned, GOSS (or the
+        padding) enters as per-row weights."""
+        d = self.data
+        g, h = self.gradients(self.score)
+        if goss:
+            mask_gh, mask_count = self._goss(g, h)
+        else:
+            mask_gh = mask_count = d.valid_mask
+        vals, scale = self._vals(g * mask_gh, h * mask_gh, mask_count,
+                                 d.n_pad)
+        return grow_tree(d.bins_t, vals, self.feat_num_bin,
+                         self.feat_has_nan, self.allowed, self.grow_cfg,
+                         chan_scale=scale)
+
+    def _step_goss_compact(self):
+        """GOSS with histogram-only compaction: the sampled rows move into
+        a fixed-size buffer (``compact_rows``) that the histograms scan;
+        the full-row leaf ids and score update stay as in the masked
+        step."""
+        d = self.data
+        g, h = self.gradients(self.score)
+        mask_gh, mask_count = self._goss(g, h)
+        vals_all = torch.stack([g, h, mask_gh, mask_count])    # [4, n]
+        dest, algn, rem = plan_compaction(mask_count > 0, self.compact_rpb,
+                                          self.goss_n_sub)
+        bins_t_c, vc = compact_rows(d.bins_t, vals_all, dest, algn, rem,
+                                    out_cols=self.goss_n_sub,
+                                    rows_per_block=self.compact_rpb)
+        gk, hk = vc[0] * vc[2], vc[1] * vc[2]
+        vals_c, scale = self._vals(gk, hk, vc[3], self.goss_n_sub)
+        cfg = dataclasses.replace(self.grow_cfg, hist_compact=True)
+        return grow_tree(d.bins_t, vals_c, self.feat_num_bin,
+                         self.feat_has_nan, self.allowed, cfg,
+                         chan_scale=scale, compact_bins_t=bins_t_c)
+
+    def goss_active(self) -> bool:
+        """GOSS starts after 1/learning_rate iterations (goss.hpp keeps
+        the first iterations un-subsampled)."""
+        c = self.config
+        return (c.data_sample_strategy == "goss"
+                and self.iter_ >= int(1.0 / max(c.learning_rate, 1e-6)))
+
+    def train_one_iter(self) -> None:
+        """One boosting iteration."""
+        lr = float(self.config.learning_rate)
+        if self.goss_active() and self.use_goss_compact:
+            tree, leaf_id = self._step_goss_compact()
+        else:
+            tree, leaf_id = self._step(goss=self.goss_active())
+        self.score = self.score + tree["leaf_value"][leaf_id.to(
+            torch.int64)] * lr
+        host = {k: v.cpu().numpy() for k, v in tree.items()}
+        t = Tree.from_device(host, lr, self.train_set.bin_mappers,
+                             self.train_set.used_features)
+        if self.valid_scores:
+            depth = int(t.leaf_depths().max())
+            for i, dd in enumerate(self.valid_data):
+                vals, _ = tree_predict_binned(tree, dd.bins,
+                                              self.feat_num_bin,
+                                              self.feat_has_nan, depth)
+                self.valid_scores[i] = self.valid_scores[i] + vals * lr
+        self.models.append(t)
+        self._stack_cache = None
+        self.iter_ += 1
+
+    # ------------------------------------------------------------------
+    def _stacked_forest(self) -> Tuple[Dict[str, torch.Tensor], int]:
+        """All trees as padded device arrays + the forest's depth; cached
+        until the model list changes."""
+        if self._stack_cache is not None \
+                and self._stack_cache[0] == len(self.models):
+            return self._stack_cache[1], self._stack_cache[2]
+        trees = self.models
+        L = max(max(t.num_leaves for t in trees), 1)
+        Ln = max(L - 1, 1)
+        dev = self.device
+
+        def padded(getter, size, dtype):
+            out = np.zeros((len(trees), size), dtype=dtype)
+            for i, t in enumerate(trees):
+                a = getter(t)
+                out[i, :len(a)] = a
+            return torch.from_numpy(out).to(dev)
+
+        stacked = {
+            "num_leaves": torch.as_tensor(
+                np.array([t.num_leaves for t in trees], np.int32),
+                device=dev),
+            "split_feature": padded(lambda t: t.split_feature, Ln, np.int32),
+            "threshold_bin": padded(lambda t: t.threshold_bin, Ln, np.int32),
+            "default_left": padded(lambda t: t.default_left, Ln, bool),
+            "left_child": padded(lambda t: t.left_child, Ln, np.int32),
+            "right_child": padded(lambda t: t.right_child, Ln, np.int32),
+            "leaf_value": padded(lambda t: t.leaf_value.astype(np.float32),
+                                 L, np.float32),
+        }
+        depth = max(int(t.leaf_depths().max()) for t in trees)
+        self._stack_cache = (len(self.models), stacked, depth)
+        return stacked, depth
+
+    def eval_set(self, which: int) -> List[Tuple[str, str, float, bool]]:
+        """Evaluate metrics: which=-1 train, else valid index."""
+        if which < 0:
+            dd, name, score = self.data, "training", self.score
+        else:
+            dd = self.valid_data[which]
+            name = self.valid_names[which]
+            score = self.valid_scores[which]
+        raw = score.cpu().numpy()[:dd.n]
+        label = dd.label.cpu().numpy()[:dd.n] if dd.label is not None \
+            else None
+        weight = dd.weight.cpu().numpy()[:dd.n] if dd.weight is not None \
+            else None
+        return eval_metric_rows(self.objective, self.metrics, name, raw,
+                                label, weight)
+
+    def predict(self, X, raw_score: bool = False) -> np.ndarray:
+        """Predict on raw features (binned through the train mappers)."""
+        X = Dataset._to_matrix(X)
+        if X.shape[1] != self.train_set.num_total_features:
+            log.fatal(f"The number of features in data ({X.shape[1]}) is "
+                      f"not the same as it was in training data "
+                      f"({self.train_set.num_total_features})")
+        n = X.shape[0]
+        if self.models:
+            bins = torch.from_numpy(self.train_set.bin_rows(X)).to(
+                self.device)
+            stacked, depth = self._stacked_forest()
+            raw_dev, _ = forest_predict_binned(stacked, bins,
+                                               self.feat_num_bin,
+                                               self.feat_has_nan, depth)
+            raw = raw_dev.cpu().numpy().astype(np.float64)
+        else:
+            raw = np.zeros(n, np.float64)
+        raw = raw + self.init_scores[0]
+        if raw_score:
+            return raw
+        return self.objective.convert_output(
+            torch.from_numpy(raw.astype(np.float32))).numpy()
+
+    @property
+    def current_iteration(self) -> int:
+        return self.iter_

@@ -1,0 +1,52 @@
+"""The port's noise source.
+
+The JAX package draws its training noise from threefry keys
+(``PRNGKey(objective_seed + iter)`` split and folded per use, gbdt.py).
+This package draws the same three uniforms from a ``torch.Generator`` on
+the data's device, seeded with ``objective_seed + iteration``:
+
+- ``goss_uniform``: GOSS's per-row draw that picks the sampled rest rows;
+- ``quant_uniforms``: the stochastic-rounding offsets of the quantized
+  gradient and hessian.
+
+The two streams give different numbers from the same seed, so a test that
+compares the packages hands the port the JAX package's draws through an
+object with the same two methods (tests/test_torch_train.py).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+class TorchNoise:
+    """Per-iteration uniforms from one ``torch.Generator`` re-seeded with
+    ``seed + iteration``; within an iteration the draws come in call
+    order (the step calls GOSS first, then the quantizer)."""
+
+    def __init__(self, seed: int, device: torch.device):
+        self.seed = int(seed)
+        self.device = torch.device(device)
+        self._iteration: Optional[int] = None
+        self._gen: Optional[torch.Generator] = None
+
+    def _generator(self, iteration: int) -> torch.Generator:
+        if self._iteration != iteration:
+            self._gen = torch.Generator(device=self.device)
+            self._gen.manual_seed(self.seed + int(iteration))
+            self._iteration = iteration
+        return self._gen
+
+    def goss_uniform(self, iteration: int, n: int) -> torch.Tensor:
+        """``[n]`` float32 uniforms in [0, 1)."""
+        return torch.rand(n, generator=self._generator(iteration),
+                          device=self.device, dtype=torch.float32)
+
+    def quant_uniforms(self, iteration: int, n: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Two ``[n]`` float32 offsets in [-0.5, 0.5): gradient, hessian."""
+        gen = self._generator(iteration)
+        ng = torch.rand(n, generator=gen, device=self.device) - 0.5
+        nh = torch.rand(n, generator=gen, device=self.device) - 0.5
+        return ng, nh
