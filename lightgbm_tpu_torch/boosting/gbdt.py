@@ -4,14 +4,18 @@ Reference: ``GBDT::TrainOneIter`` (src/boosting/gbdt.cpp, UNVERIFIED —
 empty mount, see SURVEY.md banner): gradients from the objective →
 (GOSS subset) → train one tree → shrinkage → update train + valid scores.
 
-The port of ``lightgbm_tpu/boosting/gbdt.py`` for the main path: binary
-objective, serial learner, full-row steps and GOSS steps (masked, or with
-the compacted histogram buffer of ``tpu_goss_compact``), exact or
-quantized gradients with stochastic rounding. Scores and the binned
-matrices stay on the device across iterations; each iteration copies the
-finished tree's flat arrays to the host. ``gradients``, ``quantize`` and
-``goss_masks`` are pure functions that take their uniform draws as
-tensors; the draws come from a noise object (``utils/random.py``).
+The port of ``lightgbm_tpu/boosting/gbdt.py`` for the main paths: binary
+objective, serial learner, full-row steps (with bagging, per-tree
+feature_fraction and the leaf-ordered row partition of
+``tpu_hist_partition``) and GOSS steps (masked, or with the compacted
+histogram buffer of ``tpu_goss_compact``), exact or quantized gradients
+with stochastic rounding. Scores and the binned matrices stay on the
+device across iterations; each iteration copies the finished tree's flat
+arrays to the host. ``gradients``, ``quantize`` and ``goss_masks`` are
+pure functions that take their uniform draws as tensors; the draws come
+from a noise object (``utils/random.py``). Bagging and feature masks are
+drawn on the host from ``numpy.random.RandomState(bagging_seed /
+feature_fraction_seed)`` exactly as the JAX package draws them.
 """
 from __future__ import annotations
 
@@ -33,6 +37,11 @@ from ..ops.predict import forest_predict_binned, tree_predict_binned
 from ..tree import Tree
 from ..utils import log
 from ..utils.random import TorchNoise
+
+# once-per-process marker for the tpu_hist_partition=auto stand-down
+# warning (the JAX package's etiquette: warn once where the partition
+# plausibly applied, log at info level otherwise)
+_WARNED_PART_AUTO: List[bool] = []
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -218,10 +227,12 @@ class GBDT:
         self.feat_num_bin = torch.as_tensor(num_bin.astype(np.int32),
                                             device=dev)
         self.feat_has_nan = torch.as_tensor(has_nan, device=dev)
+        self.num_features = F
         self.allowed = torch.ones(F, dtype=torch.bool, device=dev)
         self.data = DeviceData.from_dataset(self.train_set,
                                             self.rows_per_block, dev,
                                             transposed=True)
+        self.hist_partition = self._engage_partition(F)
         label = md.label
         self.init_scores = np.zeros(1, dtype=np.float64)
         if label is not None:
@@ -249,7 +260,8 @@ class GBDT:
             leaf_batch=max(1, c.tpu_leaf_batch),
             # the int32 accumulator must hold qbins * n_rows
             int_hist=(self.use_quant and qbins <= 127
-                      and self.data.n_pad * qbins < 2**31))
+                      and self.data.n_pad * qbins < 2**31),
+            partition=self.hist_partition)
 
         # ---- GOSS (goss.hpp) ------------------------------------------
         # goss.hpp truncates the DOUBLE product rate * cnt; the counts
@@ -270,6 +282,43 @@ class GBDT:
             # the buffer (sampled rows + write slack) must shrink the scan
             and self.goss_n_sub < self.data.n_pad)
         self._stack_cache: Optional[Tuple[int, Dict, int]] = None
+
+        self._rng_feature = np.random.RandomState(c.feature_fraction_seed)
+        self._rng_bagging = np.random.RandomState(c.bagging_seed)
+        self._bag_mask: Optional[torch.Tensor] = None
+        # rows the histogram scans touched, summed over all trees (the
+        # JAX package's hist.rows_scanned counter)
+        self.hist_rows_scanned = 0.0
+
+    def _engage_partition(self, F: int) -> bool:
+        """``tpu_hist_partition``: "true" engages the leaf-ordered row
+        partition on any device, "false" never, "auto" where
+        ``capabilities.hist_partition_auto`` says it pays (the CUDA
+        kernels in use, pool mode, no GOSS, >= 2^20 padded rows)."""
+        c = self.config
+        mode = str(c.tpu_hist_partition)
+        if mode == "true":
+            engage = F > 0
+        elif mode == "false":
+            engage = False
+        else:
+            ok, reason = capabilities.hist_partition_auto(
+                c, self.device.type == "cuda", self.data.n_pad)
+            engage = F > 0 and ok
+            if F > 0 and not ok and reason is not None:
+                msg = (f"tpu_hist_partition=auto: staying on masked "
+                       f"histograms ({reason}); set "
+                       f"tpu_hist_partition=true to force")
+                big = self.data.n_pad >= capabilities.HIST_PARTITION_MIN_ROWS
+                if big and not _WARNED_PART_AUTO:
+                    _WARNED_PART_AUTO.append(True)
+                    log.warning(msg)
+                else:
+                    log.info(msg)
+        if engage:
+            log.info("leaf-ordered row partition enabled: histograms scan "
+                     "only the elected children's row spans")
+        return engage
 
     # ------------------------------------------------------------------
     def _init_score(self, dd: DeviceData) -> torch.Tensor:
@@ -315,22 +364,67 @@ class GBDT:
         return goss_masks(g, h, d.valid_mask, u, self.goss_k_top,
                           self.goss_k_rand, self.top_rate, self.other_rate)
 
-    def _step(self, goss: bool):
-        """Masked full-row step: every row is scanned, GOSS (or the
-        padding) enters as per-row weights."""
+    def _feature_mask(self) -> torch.Tensor:
+        """This tree's ``[F]`` feature mask (feature_fraction): ceil(F *
+        frac) features drawn without replacement, draw for draw the JAX
+        package's ``_feature_mask``."""
+        F = self.num_features
+        frac = self.config.feature_fraction
+        if frac >= 1.0 or F == 0:
+            return self.allowed
+        mask = np.zeros(F, dtype=bool)
+        k = max(1, int(np.ceil(F * frac)))
+        mask[self._rng_feature.choice(F, size=k, replace=False)] = True
+        return torch.from_numpy(mask).to(self.device)
+
+    def _bagging_masks(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mask_gh, mask_count) of a full-row step, with row validity:
+        every ``bagging_freq`` iterations a fresh Bernoulli draw per row
+        (per label class with ``pos/neg_bagging_fraction``), draw for
+        draw the JAX package's ``_bagging_masks``."""
+        c = self.config
+        d = self.data
+        use_bagging = (c.bagging_freq > 0
+                       and (c.bagging_fraction < 1.0
+                            or c.pos_bagging_fraction < 1.0
+                            or c.neg_bagging_fraction < 1.0))
+        if not use_bagging:
+            return d.valid_mask, d.valid_mask
+        if self._bag_mask is None or self.iter_ % c.bagging_freq == 0:
+            n = d.n
+            if (c.pos_bagging_fraction < 1.0
+                    or c.neg_bagging_fraction < 1.0):
+                pos = np.asarray(self.train_set.metadata.label) > 0
+                keep = np.zeros(n, dtype=np.float32)
+                keep[pos] = (self._rng_bagging.rand(int(pos.sum()))
+                             < c.pos_bagging_fraction)
+                keep[~pos] = (self._rng_bagging.rand(int((~pos).sum()))
+                              < c.neg_bagging_fraction)
+            else:
+                keep = (self._rng_bagging.rand(n)
+                        < c.bagging_fraction).astype(np.float32)
+            full = np.zeros(d.n_pad, dtype=np.float32)
+            full[:n] = keep
+            self._bag_mask = torch.from_numpy(full).to(self.device)
+        return self._bag_mask, self._bag_mask
+
+    def _step(self, goss: bool, allowed: torch.Tensor):
+        """Masked full-row step: every row is scanned (or, under the
+        partition, every row stays in the partitioned source), GOSS or
+        bagging (or the padding) enters as per-row weights."""
         d = self.data
         g, h = self.gradients(self.score)
         if goss:
             mask_gh, mask_count = self._goss(g, h)
         else:
-            mask_gh = mask_count = d.valid_mask
+            mask_gh, mask_count = self._bagging_masks()
         vals, scale = self._vals(g * mask_gh, h * mask_gh, mask_count,
                                  d.n_pad)
         return grow_tree(d.bins_t, vals, self.feat_num_bin,
-                         self.feat_has_nan, self.allowed, self.grow_cfg,
+                         self.feat_has_nan, allowed, self.grow_cfg,
                          chan_scale=scale)
 
-    def _step_goss_compact(self):
+    def _step_goss_compact(self, allowed: torch.Tensor):
         """GOSS with histogram-only compaction: the sampled rows move into
         a fixed-size buffer (``compact_rows``) that the histograms scan;
         the full-row leaf ids and score update stay as in the masked
@@ -348,7 +442,7 @@ class GBDT:
         vals_c, scale = self._vals(gk, hk, vc[3], self.goss_n_sub)
         cfg = dataclasses.replace(self.grow_cfg, hist_compact=True)
         return grow_tree(d.bins_t, vals_c, self.feat_num_bin,
-                         self.feat_has_nan, self.allowed, cfg,
+                         self.feat_has_nan, allowed, cfg,
                          chan_scale=scale, compact_bins_t=bins_t_c)
 
     def goss_active(self) -> bool:
@@ -361,12 +455,17 @@ class GBDT:
     def train_one_iter(self) -> None:
         """One boosting iteration."""
         lr = float(self.config.learning_rate)
+        allowed = self._feature_mask()
         if self.goss_active() and self.use_goss_compact:
-            tree, leaf_id = self._step_goss_compact()
+            tree, leaf_id = self._step_goss_compact(allowed)
         else:
-            tree, leaf_id = self._step(goss=self.goss_active())
+            tree, leaf_id = self._step(self.goss_active(), allowed)
         self.score = self.score + tree["leaf_value"][leaf_id.to(
             torch.int64)] * lr
+        # rows the histogram scans touched (a host float32): n per scan on
+        # the masked path, the elected children's padded spans under the
+        # partition
+        self.hist_rows_scanned += float(tree.pop("hist_rows"))
         host = {k: v.cpu().numpy() for k, v in tree.items()}
         t = Tree.from_device(host, lr, self.train_set.bin_mappers,
                              self.train_set.used_features)

@@ -1,16 +1,18 @@
 """The port's capability table: which features this package trains.
 
 ``lightgbm_tpu/capabilities.py`` gates features per boosting engine; this
-package has one engine and one path so far -- binary gradient boosting
-with the serial learner, pool-mode histograms, GOSS (with the compacted
-histogram buffer) or plain full-row training, and exact or quantized
+package has one engine so far -- binary gradient boosting with the serial
+learner and pool-mode histograms, trained on full rows (with bagging,
+per-tree feature_fraction and the leaf-ordered row partition) or under
+GOSS (with the compacted histogram buffer), on exact or quantized
 gradients. Every other feature of the JAX package is FATAL here with a
 message that names it, so an unported parameter fails loudly instead of
 silently training something else.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Tuple)
 
 from .utils import log
 
@@ -22,6 +24,11 @@ MULTI_TREE_OBJECTIVES = ("multiclass", "multiclassova")
 # this many rows or more (lightgbm_tpu/capabilities.py's policy)
 AUTO_QUANTIZE_OBJECTIVES = ("binary",)
 AUTO_QUANT_MIN_ROWS = 500_000
+
+# tpu_hist_partition=auto engages the leaf-ordered row partition only at
+# this many padded rows or more (the JAX package's threshold; not yet
+# re-decided from measurements on the GPU)
+HIST_PARTITION_MIN_ROWS = 1 << 20
 
 # metrics this package evaluates
 PORTED_METRICS = ("auc", "binary_logloss", "binary")
@@ -37,12 +44,6 @@ class Capability(NamedTuple):
     describe: str                           # phrase for fatal messages
     requested: Callable[[Any], bool]        # predicate over Config
     example: Optional[Dict[str, Any]] = None  # params witnessing it (tests)
-
-
-def _bagging(c) -> bool:
-    return c.bagging_freq > 0 and (c.bagging_fraction < 1.0
-                                   or c.pos_bagging_fraction < 1.0
-                                   or c.neg_bagging_fraction < 1.0)
 
 
 def _unported_knobs(c) -> List[str]:
@@ -70,16 +71,14 @@ UNPORTED: Dict[str, Capability] = {
     "boosting": Capability(
         "boosting other than gbdt (dart, rf)",
         lambda c: c.boosting != "gbdt", {"boosting": "dart"}),
-    "bagging": Capability(
-        "bagging", _bagging, {"bagging_freq": 1, "bagging_fraction": 0.5}),
     "sample_strategy": Capability(
         "data_sample_strategy other than bagging/goss",
         lambda c: str(c.data_sample_strategy) not in ("bagging", "goss"),
         {"data_sample_strategy": "uniform"}),
     "feature_fraction": Capability(
-        "feature_fraction / feature_fraction_bynode < 1",
-        lambda c: c.feature_fraction < 1.0 or c.feature_fraction_bynode < 1.0,
-        {"feature_fraction": 0.5}),
+        "feature_fraction_bynode < 1 (per-node column sampling)",
+        lambda c: c.feature_fraction_bynode < 1.0,
+        {"feature_fraction_bynode": 0.5}),
     "tree_learner": Capability(
         "distributed tree learners (data, voting, feature)",
         lambda c: c.tree_learner != "serial", {"tree_learner": "data"}),
@@ -124,10 +123,6 @@ UNPORTED: Dict[str, Capability] = {
     "hist_rebuild": Capability(
         "tpu_hist_mode=rebuild", lambda c: c.tpu_hist_mode != "pool",
         {"tpu_hist_mode": "rebuild"}),
-    "hist_partition": Capability(
-        "tpu_hist_partition=true (the leaf-ordered row partition)",
-        lambda c: c.tpu_hist_partition == "true",
-        {"tpu_hist_partition": "true"}),
     "early_stopping": Capability(
         "early stopping", lambda c: c.early_stopping_round > 0,
         {"early_stopping_round": 5}),
@@ -147,6 +142,24 @@ UNPORTED: Dict[str, Capability] = {
         lambda c: bool(_unported_knobs(c)),
         {"tpu_double_precision_hist": True}),
 }
+
+
+def hist_partition_auto(config, cuda_kernels: bool,
+                        n_pad: int) -> Tuple[bool, Optional[str]]:
+    """The ``tpu_hist_partition=auto`` policy (the JAX package's, with
+    "the CUDA kernels are in use" where it has "the Pallas kernels are in
+    use"): engage the leaf-ordered row partition only on the pool path
+    over a large un-compacted source. Returns ``(engage,
+    stand_down_reason)``; the reason is None when engaging or when the
+    path was never plausible (no CUDA kernels, or rebuild mode)."""
+    if not cuda_kernels or str(config.tpu_hist_mode) != "pool":
+        return False, None
+    if str(config.data_sample_strategy) == "goss":
+        return False, "GOSS already compacts the scan"
+    if n_pad < HIST_PARTITION_MIN_ROWS:
+        return False, ("dataset too small to amortize the "
+                       "repartition move")
+    return True, None
 
 
 def unported_features(config) -> List[str]:

@@ -16,14 +16,21 @@ of ``GrowConfig`` the main path sets:
 - the ``[L+1, F, B, 3]`` histogram pool with sibling subtraction;
 - ``int_hist``: quantized gradients summed exactly in the kernel;
 - ``hist_compact`` (GOSS): histograms scan a compacted buffer of the
-  sampled rows while the full-row ``leaf_id`` drives the score update.
+  sampled rows while the full-row ``leaf_id`` drives the score update;
+- ``partition`` (tpu_hist_partition): the histogram source's rows are
+  kept grouped by leaf (``ops/partition.py``), moved once per round by
+  the partition-move kernel, and each round's histogram scans only the
+  elected children's spans, cut to a power-of-two budget, or the whole
+  partitioned source when the spans would not shrink the scan.
 
 The JAX package's ``lax.while_loop`` becomes a host-driven loop of device
-ops with one host sync per round (the top-k leaf election). Tree arrays
-carry one trailing TRASH slot (node L-1, leaf L) so inactive batch lanes
-write harmlessly, exactly as in the JAX package, so both produce the same
-arrays. Constraints, EFB, categorical splits, forced splits, the row
-partition and the distributed modes are not ported yet.
+ops with one host sync per round (the top-k leaf election), plus, under
+the partition, one read of the largest elected span (the budget that the
+JAX package picks on the device with ``lax.switch``). Tree arrays carry
+one trailing TRASH slot (node L-1, leaf L) so inactive batch lanes write
+harmlessly, exactly as in the JAX package, so both produce the same
+arrays. Constraints, EFB, categorical splits, forced splits, rebuild mode
+and the distributed modes are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ import numpy as np
 import torch
 
 from ..ops.histogram import multi_leaf_histogram
+from ..ops.partition import move_cols, plan_split_move, slice_spans, \
+    span_budgets, update_tables
 from ..ops.split import NEG_INF, SplitConfig, calc_leaf_output, \
     find_best_split
 
@@ -59,6 +68,10 @@ class GrowConfig:
     # GOSS histogram-only compaction: histograms scan the compacted
     # sampled-row buffer (grow_tree's `compact_bins_t` argument)
     hist_compact: bool = False
+    # leaf-ordered row partition of the histogram source (all rows, or
+    # the compacted buffer under hist_compact): histograms scan only the
+    # elected children's spans
+    partition: bool = False
 
     @property
     def split_config(self) -> SplitConfig:
@@ -119,8 +132,12 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         are ``vals``) while ``leaf_id`` covers all rows.
 
     Returns:
-      (tree dict of fixed-size arrays + ``num_leaves``, per-row leaf_id
-      ``[n]`` int32) — the same arrays as the JAX package's grow_tree.
+      (tree dict of fixed-size arrays + ``num_leaves`` + ``hist_rows``,
+      per-row leaf_id ``[n]`` int32) — the same arrays as the JAX
+      package's grow_tree. ``hist_rows`` (a host ``np.float32``, summed
+      in float32 like the JAX package's) counts the rows the histogram
+      scans touched: the source's n once per scan on the masked path,
+      the padded spans under the partition.
     """
     dev = bins_t.device
     F, n_rows = bins_t.shape
@@ -134,10 +151,13 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
     h_vals_t = vals.T.contiguous()
     n_h = h_bins_t.shape[1]
 
-    def hist_multi(leaf_ids, small_ids):
-        h = multi_leaf_histogram(h_bins_t, h_vals_t, leaf_ids, small_ids,
+    def hist_of(b_src, v_src, l_src, small_ids):
+        h = multi_leaf_histogram(b_src, v_src, l_src, small_ids,
                                  num_bins=B, int_mode=cfg.int_hist)
         return h * chan_scale if chan_scale is not None else h
+
+    def hist_multi(leaf_ids, small_ids):
+        return hist_of(h_bins_t, h_vals_t, leaf_ids, small_ids)
 
     def leaf_out(sums):
         return calc_leaf_output(sums[..., 0], sums[..., 1], cfg.lambda_l1,
@@ -188,6 +208,21 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
     leaf_parent = torch.full((L + 1,), -1, dtype=i32, device=dev)
     leaf_is_left = torch.zeros(L + 1, dtype=torch.bool, device=dev)
 
+    # ---- leaf-ordered row partition (cfg.partition) -------------------
+    # the source's rows start as one span (the root); each round moves
+    # them into one of two buffers allocated at first use (never into the
+    # caller's arrays) and the next round moves them back
+    if cfg.partition:
+        budgets = span_budgets(n_h, Kb)
+        part = (h_bins_t, h_vals_t, torch.zeros(n_h, dtype=i32, device=dev))
+        part_off = torch.zeros(L + 1, dtype=i32, device=dev)
+        part_cnt = torch.zeros(L + 1, dtype=i32, device=dev)
+        part_cnt[0] = n_h
+        bufs = [None, None]
+        cur = -1                  # the buffer holding `part` (-1: inputs)
+    # the root histogram scanned the whole source once
+    rows_scanned = np.float32(n_h)
+
     node_trash = L - 1  # real nodes occupy 0..L-2
     leaf_trash = L
     lanes = np.arange(Kb)
@@ -229,17 +264,54 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         leaf_id = _apply_splits(leaf_id, bins_t, leaf_lane, feat_sel,
                                 thr_sel, dl_sel, new_i32, feat_num_bin,
                                 feat_has_nan)
-        if compact:
+        # under the partition the compacted buffer's masked ids are dead
+        # (histograms read the partition's ids): skip their pass
+        if compact and not cfg.partition:
             leaf_id_c = _apply_splits(leaf_id_c, h_bins_t, leaf_lane,
                                       feat_sel, thr_sel, dl_sel, new_i32,
                                       feat_num_bin, feat_has_nan)
+
+        # ---- leaf-ordered repartition: one stable front/back move ------
+        if cfg.partition:
+            p_bins, p_vals, p_leaf = part
+            leaf_mv = _apply_splits(p_leaf, p_bins, leaf_lane, feat_sel,
+                                    thr_sel, dl_sel, new_i32, feat_num_bin,
+                                    feat_has_nan)
+            dest, n_front, cum = plan_split_move(leaf_mv != p_leaf)
+            part_off, part_cnt = update_tables(part_off, part_cnt, cum,
+                                               n_front, tl_safe, new_ids,
+                                               valid)
+            nxt = 1 if cur == 0 else 0
+            if bufs[nxt] is None:
+                bufs[nxt] = (torch.empty_like(p_bins),
+                             torch.empty_like(p_vals),
+                             torch.empty_like(p_leaf))
+            part = move_cols(p_bins, p_vals, leaf_mv, dest, out=bufs[nxt])
+            cur = nxt
 
         # ---- smaller-child histogram + sibling subtraction -------------
         left_smaller = lsums[:, 2] <= rsums[:, 2]
         small_ids = torch.where(
             valid, torch.where(left_smaller, top_leaf, new_ids), -1).to(i32)
-        hist_small = hist_multi(leaf_id_c if compact else leaf_id,
-                                small_ids)
+        span_rows = n_h
+        if cfg.partition:
+            # scan only the elected children's spans, at the smallest
+            # budget that holds the largest (one host read per round)
+            safe = small_ids.clamp(0, L).to(torch.int64)
+            offs_k = part_off[safe]
+            cnts_k = torch.where(small_ids >= 0, part_cnt[safe], 0)
+            need = int(cnts_k.max())
+            fits = [s for s in budgets if s >= need]
+            if fits:
+                span_rows = Kb * fits[0]
+                hist_small = hist_of(*slice_spans(*part, offs_k, cnts_k,
+                                                  fits[0]), small_ids)
+            else:                  # masked full scan over the partition
+                hist_small = hist_of(*part, small_ids)
+        else:
+            hist_small = hist_multi(leaf_id_c if compact else leaf_id,
+                                    small_ids)
+        rows_scanned = np.float32(rows_scanned + np.float32(span_rows))
         parent_hist = leaf_hist[tl_safe]
         hist_large = parent_hist - hist_small
         ls4 = left_smaller[:, None, None, None]
@@ -307,5 +379,6 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         "leaf_value": leaf_vcw[:L, 0],
         "leaf_count": leaf_vcw[:L, 1],
         "leaf_weight": leaf_vcw[:L, 2],
+        "hist_rows": rows_scanned,
     }
     return tree, leaf_id

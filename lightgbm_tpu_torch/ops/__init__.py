@@ -1,2 +1,2 @@
-"""Device operators: histogram and compaction kernels, split search,
-binned forest traversal."""
+"""Device operators: histogram, compaction and partition-move kernels,
+the histogram probe kernels, split search, binned forest traversal."""

@@ -39,16 +39,17 @@ def _data(n=8192, F=12, B=64, seed=0):
     return bins, vals, nb, has_nan
 
 
-def _grow_both(leaf_batch, compact, scale, L=31, B=64, seed=0):
+def _grow_both(leaf_batch, compact, scale, L=31, B=64, seed=0,
+               partition=False):
     bins, vals, nb, hn = _data(B=B, seed=seed + leaf_batch)
     F = bins.shape[1]
     allowed = np.ones(F, bool)
     jcfg = JaxGrowConfig(num_leaves=L, num_bins=B, rows_per_block=1024,
                          leaf_batch=leaf_batch, hist_compact=compact,
-                         min_data_in_leaf=5)
+                         min_data_in_leaf=5, partition=partition)
     tcfg = GrowConfig(num_leaves=L, num_bins=B, leaf_batch=leaf_batch,
                       int_hist=True, hist_compact=compact,
-                      min_data_in_leaf=5)
+                      min_data_in_leaf=5, partition=partition)
     j = dict(chan_scale=jnp.asarray(scale))
     t = dict(chan_scale=torch.from_numpy(scale))
     hv = vals
@@ -65,7 +66,8 @@ def _grow_both(leaf_batch, compact, scale, L=31, B=64, seed=0):
                        torch.from_numpy(nb), torch.from_numpy(hn),
                        torch.from_numpy(allowed), tcfg, **t)
     return ({k: np.asarray(v) for k, v in jt.items()}, np.asarray(jl),
-            {k: v.cpu().numpy() for k, v in tt.items()}, tl.numpy())
+            {k: np.asarray(v.cpu() if torch.is_tensor(v) else v)
+             for k, v in tt.items()}, tl.numpy())
 
 
 @pytest.mark.parametrize("compact", [False, True])
