@@ -9,8 +9,8 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
 
 1. kernel A (multi-leaf histogram) and kernel B (row compaction) against
    their plain torch versions at the training paths' shapes (kernel A
-   also at the 2M-row run's padded rows and on one span round of its
-   partition), timed;
+   also at the 2M-row run's padded rows, on one span round of its
+   partition and with skewed bins), timed;
 2. the partition-move kernel at the 2M-row run's padded width (moved
    fractions 0.5 and 0.001), bit-equal to its plain version, timed;
 3. the two histogram probe kernels at their probe shapes (the 1-D probe,
@@ -27,13 +27,23 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
    engage the row partition and launch the move kernel every iteration,
    the two model texts must be byte-equal and the partition must scan
    fewer rows; then two more iterations of each under torch.profiler
-   give the device's idle share.
+   give the device's idle share;
+6. the replay: the histogram calls of one tree of each training run,
+   recorded on the way (the flagship's last full-row and last GOSS tree,
+   one more tree of each full-row run, with the partition the first that
+   has a span round), each held bit for bit against the plain version
+   (int mode, and f32 mode on exact-sum values) and timed beside the
+   plain version, an int and an f32 ``index_add_`` and the bound; a
+   histogram source under ``build/hist_extra/`` (an earlier
+   ``histogram.cu``) is built and timed beside kernel A in turns.
 
 Each training run sets the kernels' launch counts to 0 just before it
 and reads them just after. The last two lines of standard output are the
 per-kernel JSON line and the result line ``{"ok": true, "device":
-{...}}``; any failure exits non-zero before the result line. It needs a
-CUDA device and imports neither JAX nor ``lightgbm_tpu``.
+{...}}``; any failure exits non-zero before the result line.
+``--json-out PATH`` also writes the per-kernel record, replay included,
+to PATH. It needs a CUDA device and imports neither JAX nor
+``lightgbm_tpu``.
 """
 import json
 import math
@@ -53,6 +63,7 @@ F32_OPS_PER_S = 67e12            # CUDA-core float32 / int32 adds
 N_TRAIN, N_HOLDOUT, N_FEAT = 1_000_000, 100_000, 28
 ROUNDS = 16
 TRACE_ROUNDS = 2                 # profiled iterations after the full-row runs
+SPAN_SEARCH = 12                 # more iterations to find a tree with span rounds
 PARAMS = {"objective": "binary", "num_leaves": 127, "max_bin": 255,
           "learning_rate": 0.1, "use_quantized_grad": True,
           "stochastic_rounding": True, "data_sample_strategy": "goss",
@@ -63,6 +74,14 @@ PARAMS = {"objective": "binary", "num_leaves": 127, "max_bin": 255,
 # GOSS buffer (lightgbm_tpu_torch.boosting.gbdt: n_pad and goss_n_sub)
 HIST_F, HIST_B, HIST_K, HIST_C = 28, 256, 32, 3
 INACTIVE_LANES = (5, 17, 30)     # lanes with small id -1 in a round
+# histogram sources timed beside kernel A on the recorded calls when
+# present (git-ignored; relative to this script's directory)
+HIST_EXTRA_DIR = os.path.join("build", "hist_extra")
+# the replay numbers the per-kernel JSON line carries (--json-out PATH
+# writes them all)
+REPLAY_KEYS = ("tree", "kind", "n", "live_lanes", "matched_rows",
+               "int_kernel_ms", "f32_kernel_ms", "bound_ms",
+               "library_int_ms", "library_f32_ms")
 # the span budget of the full-row run's span rounds: the largest S with
 # 32 x S < the padded 2M rows (lightgbm_tpu_torch.ops.partition.span_budgets)
 SPAN_BUDGET = 32_768
@@ -153,21 +172,27 @@ def check_f32(name, got, ref, vals, exact):
 def lane_index(bins, vals, leaf, ids, B):
     """One ``index_add_``'s flat [K*F*B*C] index and source for a
     multi-leaf histogram (every row-lane match, as the contract counts a
-    repeated id), and the rows that match a lane: (idx, src, matched
-    rows, row-lane pairs)."""
+    repeated id; a negative id matches nothing), and the rows that match
+    a lane: (idx, src, matched rows, row-lane pairs)."""
     F, C, K = bins.shape[0], vals.shape[0], ids.shape[0]
     dev = bins.device
     f_idx = torch.arange(F, device=dev)[:, None]
     c_idx = torch.arange(C, device=dev)
     idx, src = [], []
     for k in range(K):
+        if int(ids[k]) < 0:
+            continue
         rows = torch.nonzero(leaf == ids[k]).flatten()
         cell = (k * F + f_idx) * B + bins[:, rows].long()          # [F, m]
         idx.append((cell[:, :, None] * C + c_idx).reshape(-1))
         src.append(vals[:, rows].T[None].expand(F, -1, C).reshape(-1))
-    any_lane = (leaf[None, :] == ids[:, None]).any(0)
+    live = ids[ids >= 0]
+    any_lane = (leaf[None, :] == live[:, None]).any(0)
     pairs = sum(int(i.numel()) for i in idx) // (F * C)
-    return torch.cat(idx), torch.cat(src), int(any_lane.sum()), pairs
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    return (torch.cat(idx) if idx else empty,
+            torch.cat(src) if src else empty.to(vals.dtype),
+            int(any_lane.sum()), pairs)
 
 
 def span_case(rng, bins_p, leaf_p, tp):
@@ -208,14 +233,19 @@ def span_case(rng, bins_p, leaf_p, tp):
 def histogram_phase(dev, th, tp, n_full_pad):
     """Kernel A at the main paths' shapes, int and f32 mode: the GOSS
     flagship's padded rows and GOSS buffer, the full-row run's padded
-    rows (the masked scan, and the partition's fallback scan), and one
-    span round of the partitioned run (``span_case``)."""
+    rows (the masked scan, and the partition's fallback scan), one span
+    round of the partitioned run (``span_case``), and the flagship's
+    padded rows with skewed bins (90% of each feature's rows in one
+    bin)."""
     rng = np.random.default_rng(1)
     out = {}
     for label, n in (("masked", 1_003_520), ("goss", 311_296),
-                     ("full_row", n_full_pad), ("spans", n_full_pad)):
-        bins = torch.from_numpy(rng.integers(0, HIST_B, size=(HIST_F, n))
-                                .astype(np.uint8)).to(dev)
+                     ("full_row", n_full_pad), ("spans", n_full_pad),
+                     ("skewed", 1_003_520)):
+        bins = rng.integers(0, HIST_B, size=(HIST_F, n)).astype(np.uint8)
+        if label == "skewed":            # 90% of each feature's rows in one bin
+            bins[rng.random((HIST_F, n)) < 0.9] = 17
+        bins = torch.from_numpy(bins).to(dev)
         levels = np.stack([rng.integers(-2, 3, size=n),
                            rng.integers(0, 4, size=n),
                            (rng.random(n) < 0.9)]).astype(np.float32)
@@ -258,12 +288,17 @@ def histogram_phase(dev, th, tp, n_full_pad):
                 plain_ms=time_ms(lambda: th.multi_leaf_histogram_plain(
                     *args, **kw), reps=3, warmup=1))
         # library yardstick: one index_add_ into the flat [K*F*B*C]
-        # buffer, its index computed before the timed call
+        # buffer, its index computed before the timed call; int levels,
+        # and the f32 values rounded to bf16
         idx, src, m, pairs = lane_index(bins, vals["int"].to(torch.int32),
                                         leaf, ids, HIST_B)
         buf = torch.zeros(HIST_K * HIST_F * HIST_B * HIST_C,
                           dtype=torch.int32, device=dev)
         lib_ms = time_ms(lambda: buf.index_add_(0, idx, src), reps=5)
+        idx, src, _, _ = lane_index(bins, vals["f32"].to(torch.bfloat16)
+                                    .float(), leaf, ids, HIST_B)
+        fbuf = buf.view(torch.float32)
+        lib_f32_ms = time_ms(lambda: fbuf.index_add_(0, idx, src), reps=5)
         del idx, src
         # the work this data needs: every leaf id, the bins and values of
         # the m rows that match a lane, the output once; an add per
@@ -273,16 +308,221 @@ def histogram_phase(dev, th, tp, n_full_pad):
         b_ms, b_by = bound(nbytes, pairs * HIST_F * HIST_C)
         out[label] = dict(n=n, matched_rows=m, row_lane_matches=pairs,
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                          library_f32_ms=lib_f32_ms,
                           **{f"{mode}_{k}": v for mode, r in res.items()
                              for k, v in r.items()})
         print(f"histogram {label} n={n} (rows matching a lane {m}, "
               f"row-lane matches {pairs}): int kernel "
               f"{res['int']['ms']:.4f} ms (plain {res['int']['plain_ms']:.2f}"
               f" ms, index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms); "
-              f"f32 kernel {res['f32']['ms']:.4f} ms, max |diff| "
+              f"f32 kernel {res['f32']['ms']:.4f} ms (index_add_ "
+              f"{lib_f32_ms:.4f} ms), max |diff| "
               f"{res['f32']['max_abs_err']:.3g}; exact-sum f32 bit-equal",
               flush=True)
     return out
+
+
+class HistRecorder:
+    """Records the multi-leaf histogram calls of chosen trees. It takes the
+    place of the name the grow loop calls
+    (``learner.serial.multi_leaf_histogram``) and passes every call on to
+    the wrapper, so launch counts are unchanged; while ``tag`` is set it
+    also keeps a copy of the call's inputs."""
+
+    def __init__(self, serial, th):
+        self.serial, self.th = serial, th
+        self.tag = None
+        self.calls = []
+        self.impl = None                 # another histogram, for an A/B
+        serial.multi_leaf_histogram = self
+
+    def __call__(self, bins_t, vals_t, leaf_id, small_ids, **kw):
+        if self.tag is not None:
+            self.calls.append(dict(tree=self.tag, kw=kw, args=tuple(
+                t.clone() for t in (bins_t, vals_t, leaf_id, small_ids))))
+        if self.impl is not None:
+            return self.impl(bins_t, vals_t, leaf_id, small_ids, **kw)
+        return self.th.multi_leaf_histogram(bins_t, vals_t, leaf_id,
+                                            small_ids, **kw)
+
+    def close(self):
+        self.serial.multi_leaf_histogram = self.th.multi_leaf_histogram
+
+
+def start_extra_builds(kernels):
+    """Start one ``nvcc`` for each histogram source under
+    ``build/hist_extra/`` (an earlier ``histogram.cu``, or a variant of
+    it, with the same C entry point and a zeroed output); the directory
+    is git-ignored and usually absent. Returns {name: (process, .so)}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    src_dir = os.path.join(root, HIST_EXTRA_DIR)
+    if not os.path.isdir(src_dir):
+        return {}
+    jobs = {}
+    for fn in sorted(os.listdir(src_dir)):
+        if not fn.endswith(".cu"):
+            continue
+        name = fn[:-3]
+        so = os.path.join(src_dir, f"lib{name}.so")
+        jobs[name] = (subprocess.Popen(
+            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", so,
+             os.path.join(src_dir, fn)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    return jobs
+
+
+def finish_extra_builds(jobs):
+    """Wait for ``start_extra_builds``; returns {name: C entry point}."""
+    import ctypes
+    fns = {}
+    for name, (proc, so) in jobs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {HIST_EXTRA_DIR}/{name}.cu"
+                               f":\n{text}")
+        fn = ctypes.CDLL(so).lgbt_multi_leaf_histogram
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] * 2)
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def extra_histogram(fn, bins, vals, leaf, ids, num_bins, int_mode):
+    """One call of an extra histogram library, wrapped as the earlier
+    wrapper did: a zeroed int32 (int mode) or f32 output, the kernel, and
+    the cast to f32."""
+    F, n = bins.shape
+    C, K = vals.shape[0], ids.shape[0]
+    out = torch.zeros((K, F, num_bins, C), device=bins.device,
+                      dtype=torch.int32 if int_mode else torch.float32)
+    rc = fn(bins.data_ptr(), vals.data_ptr(), leaf.data_ptr(),
+            ids.data_ptr(), n, F, C, K, num_bins, int(int_mode),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"extra histogram kernel: CUDA error {rc}")
+    return out.to(torch.float32) if int_mode else out
+
+
+def sass_summary(lib_path, kernels):
+    """Registers, shared memory and spills of each kernel in a built
+    library (``cuobjdump -res-usage``), and the atomic instructions of its
+    SASS by opcode (``cuobjdump -sass``): {kernel: (usage, {opcode:
+    count})}. A shared f32 add that is a compare-and-swap loop shows as
+    ``ATOMS.CAST.SPIN``; a native one as ``ATOMS.ADD.F32``."""
+    import re
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {"cuobjdump": ("not found", {})}
+    usage = subprocess.run([tool, "-res-usage", str(lib_path)],
+                           capture_output=True, text=True,
+                           timeout=120).stdout
+    sass = subprocess.run([tool, "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=120).stdout
+    out, func = {}, None
+    for line in usage.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            func = m.group(1)
+        elif func and "REG:" in line:
+            out[func] = (" ".join(line.split()), {})
+    op = re.compile(r"\*/\s+(?:@!?U?P\w+\s+)?((?:ATOMS|ATOMG|ATOM|RED|REDG)"
+                    r"\.[\w.]*|(?:ATOMS|ATOMG|ATOM|RED|REDG)\b)")
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            out.setdefault(func, ("", {}))
+            continue
+        m = op.search(line)
+        if m and func:
+            ops = out[func][1]
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return out
+
+
+def replay_phase(dev, th, calls, extras):
+    """Kernel A on every recorded call of the training phases: int mode
+    bit-equal to the plain version, f32 mode bit-equal on exact-sum
+    values put in place of the recorded ones; then timed in turns with
+    every extra library (kernel, extras, extras, kernel), beside the
+    plain version, one int and one f32 ``index_add_`` (the f32 one of
+    the bf16-rounded values), the wrapper's zero-fill and cast alone,
+    and the bound."""
+    rng = np.random.default_rng(5)
+    exact_by_n, rows, root_n = {}, [], None
+    for i, call in enumerate(calls):
+        bins, vals, leaf, ids = call["args"]
+        B = call["kw"]["num_bins"]
+        F, n = bins.shape
+        C, K = vals.shape[0], ids.shape[0]
+        live = torch.unique(ids[ids >= 0])
+        if i == 0 or calls[i - 1]["tree"] != call["tree"]:
+            kind, root_n = "root", n
+        else:
+            kind = "scan" if n == root_n else "spans"
+        r = dict(tree=call["tree"], kind=kind, n=n, K=K,
+                 live_lanes=int(live.numel()))
+        kw = dict(num_bins=B)
+        got = th.multi_leaf_histogram(*call["args"], int_mode=True, **kw)
+        ref = th.multi_leaf_histogram_plain(*call["args"], int_mode=True,
+                                            **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"replay {call['tree']} call {i}: int mode "
+                                 f"max |diff| {(got - ref).abs().max()}")
+        if n not in exact_by_n:
+            exact_by_n[n] = exact_f32_vals(rng, C, n).to(dev)
+        ev = exact_by_n[n]
+        got = th.multi_leaf_histogram(bins, ev, leaf, ids, **kw)
+        ref = th.multi_leaf_histogram_plain(bins, ev, leaf, ids, **kw)
+        torch.cuda.synchronize()
+        check_f32(f"replay {call['tree']} call {i} f32", got, ref, ev, True)
+        del got, ref
+        for mode in ("int", "f32"):
+            im = mode == "int"
+            fns = {"kernel": lambda im=im: th.multi_leaf_histogram(
+                bins, vals, leaf, ids, int_mode=im, **kw)}
+            fns.update({name: (lambda fn=fn, im=im: extra_histogram(
+                fn, bins, vals, leaf, ids, B, im))
+                for name, fn in extras.items()})
+            times = {name: [] for name in fns}
+            for name in list(fns) + list(fns)[::-1]:
+                times[name].append(time_ms(fns[name], reps=10, warmup=2))
+            for name, t in times.items():
+                r[f"{mode}_{name}_ms"] = sum(t) / len(t)
+        r["int_plain_ms"] = time_ms(lambda: th.multi_leaf_histogram_plain(
+            bins, vals, leaf, ids, int_mode=True, **kw), reps=2, warmup=1)
+        zeros = torch.zeros((K, F, B, C), dtype=torch.int32, device=dev)
+        r["zero_fill_ms"] = time_ms(lambda: torch.zeros(
+            (K, F, B, C), dtype=torch.int32, device=dev))
+        r["cast_ms"] = time_ms(lambda: zeros.to(torch.float32))
+        buf = torch.zeros(K * F * B * C, dtype=torch.float32, device=dev)
+        idx, src, m, pairs = lane_index(bins, vals.to(torch.bfloat16)
+                                        .float(), leaf, ids, B)
+        r["library_f32_ms"] = time_ms(lambda: buf.index_add_(0, idx, src),
+                                      reps=5)
+        src = src.to(torch.int32)
+        ibuf = buf.view(torch.int32)
+        r["library_int_ms"] = time_ms(lambda: ibuf.index_add_(0, idx, src),
+                                      reps=5)
+        del idx, src, buf, ibuf
+        nbytes = 4 * n + (F + 4 * C) * m + 4 * K + 4 * K * F * B * C
+        r["bound_ms"], r["bound_by"] = bound(nbytes, pairs * F * C)
+        r.update(matched_rows=m, row_lane_matches=pairs)
+        rows.append(r)
+        print(f"replay {r['tree']} call {i} ({kind}) n={n} live lanes "
+              f"{r['live_lanes']}/{K}, matched rows {m}: int kernel "
+              f"{r['int_kernel_ms']:.4f} ms, f32 kernel "
+              f"{r['f32_kernel_ms']:.4f} ms"
+              + "".join(f", {x} {r[f'int_{x}_ms']:.4f}/{r[f'f32_{x}_ms']:.4f}"
+                        f" ms" for x in extras)
+              + f"; plain {r['int_plain_ms']:.3f} ms, index_add_ int "
+              f"{r['library_int_ms']:.4f} / f32 {r['library_f32_ms']:.4f} "
+              f"ms, zero-fill {r['zero_fill_ms']:.4f} + cast "
+              f"{r['cast_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms; int and "
+              f"exact-sum f32 bit-equal", flush=True)
+    return rows
 
 
 def compaction_phase(dev, tc):
@@ -471,8 +711,12 @@ def trace_rounds(bst, rounds):
         top_kernels=[(name[:80], us / 1e3 / rounds) for name, us in top])
 
 
-def full_row_phase(lgt, th, tc, tp, n_pad):
-    """Full-row training at 2M rows, the partition off and on (auto)."""
+def full_row_phase(lgt, th, tc, tp, n_pad, rec, extras):
+    """Full-row training at 2M rows, the partition off and on (auto);
+    ``rec`` records the histogram calls of one more tree of each run.
+    With an extra histogram named ``parent`` (``build/hist_extra/``),
+    the masked run is then repeated with kernel A and with it in turns
+    (kernel, parent, parent, kernel): it/s of both in one call."""
     X, y = synth_higgs(N_FULL + N_HOLDOUT, N_FEAT, seed=0)
     Xv, yv = X[N_FULL:], y[N_FULL:]
     t0 = time.time()
@@ -526,7 +770,46 @@ def full_row_phase(lgt, th, tc, tp, n_pad):
               f"{tr['idle_share']}, device-to-host copies per iteration "
               f"{tr['dtoh_per_iter']}; top device time (ms per "
               f"iteration): {tr['top_kernels']}", flush=True)
+        # after the trace: record one more tree's histogram calls; with
+        # the partition, the first of up to SPAN_SEARCH more trees that
+        # has a span round
+        for i in range(SPAN_SEARCH):
+            first = len(rec.calls)
+            rec.tag = f"full_row_{mode}"
+            bst.update()
+            rec.tag = None
+            tree = rec.calls[first:]
+            if mode == "false" or any(
+                    c["args"][0].shape[1] != tree[0]["args"][0].shape[1]
+                    for c in tree) or i == SPAN_SEARCH - 1:
+                break
+            del rec.calls[first:]
         t0 = time.time()
+    if "parent" in extras:
+        fn = extras["parent"]
+        ab = {"kernel": [], "parent": []}
+        for tag in ("kernel", "parent", "parent", "kernel"):
+            rec.impl = None if tag == "kernel" else (
+                lambda b, v, l, k, num_bins, int_mode: extra_histogram(
+                    fn, b, v, l, k, num_bins, int_mode))
+            bst = lgt.Booster(params=dict(FULL_PARAMS,
+                                          tpu_hist_partition="false"),
+                              train_set=ds)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(ROUNDS):
+                bst.update()
+            torch.cuda.synchronize()
+            ab[tag].append(ROUNDS / (time.perf_counter() - t))
+            if bst.model_to_string() != runs["false"]["text"]:
+                raise AssertionError(f"full-row A/B: {tag} model text "
+                                     "differs")
+        rec.impl = None
+        runs["false"]["it_per_s_ab"] = ab
+        print(f"full-row partition=false, it/s in turns (kernel, parent, "
+              f"parent, kernel), {ROUNDS} rounds each, model text "
+              f"byte-equal: kernel {ab['kernel']}, parent {ab['parent']}",
+              flush=True)
     off, on = runs["false"], runs["auto"]
     if off["launches"]["histogram"] <= 0 or on["launches"]["histogram"] <= 0:
         raise AssertionError("full-row path skipped kernel A")
@@ -547,7 +830,9 @@ def full_row_phase(lgt, th, tc, tp, n_pad):
             for mode, r in runs.items()}
 
 
-def train_phase(lgt, th, tc, tp):
+def train_phase(lgt, th, tc, tp, rec):
+    """The GOSS flagship; ``rec`` records the histogram calls of the last
+    full-row tree and of the last (GOSS) tree."""
     X, y = synth_higgs(N_TRAIN + N_HOLDOUT, N_FEAT, seed=0)
     Xt, yt = X[:N_TRAIN], y[:N_TRAIN]
     Xv, yv = X[N_TRAIN:], y[N_TRAIN:]
@@ -567,14 +852,18 @@ def train_phase(lgt, th, tc, tp):
     tc.compact_rows.launches = 0
     tp.move_cols.launches = 0
     per_iter, secs = [], []
-    for _ in range(ROUNDS):
+    goss_start = int(1.0 / PARAMS["learning_rate"])
+    for i in range(ROUNDS):
         h0, c0 = th.multi_leaf_histogram.launches, tc.compact_rows.launches
         goss = eng.goss_active()
+        rec.tag = ("goss_flagship_full_row" if i == goss_start - 1
+                   else "goss_flagship_goss" if i == ROUNDS - 1 else None)
         torch.cuda.synchronize()
         t = time.perf_counter()
         bst.update()
         torch.cuda.synchronize()
         secs.append((goss, time.perf_counter() - t))
+        rec.tag = None
         per_iter.append((th.multi_leaf_histogram.launches - h0,
                          tc.compact_rows.launches - c0))
     launches = {"histogram": th.multi_leaf_histogram.launches,
@@ -619,7 +908,9 @@ def train_phase(lgt, th, tc, tp):
     return res
 
 
-def main():
+def main(argv):
+    json_out = argv[argv.index("--json-out") + 1] if "--json-out" in argv \
+        else None
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device visible to torch",
               file=sys.stderr)
@@ -638,20 +929,38 @@ def main():
     from lightgbm_tpu_torch.ops import histogram as th
     from lightgbm_tpu_torch.ops import kernels
     from lightgbm_tpu_torch.ops import partition as tp
+    from lightgbm_tpu_torch.learner import serial
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t0 = time.time()
-    kernels.build()
-    print(f"kernel build (nvcc, {len(kernels.KERNELS)} sources in "
-          f"parallel): {time.time() - t0:.2f} s", flush=True)
+    jobs = start_extra_builds(kernels)
+    try:
+        kernels.build()
+    finally:
+        extras = finish_extra_builds(jobs)
+    print(f"kernel build (nvcc, {len(kernels.KERNELS) + len(jobs)} sources "
+          f"in parallel): {time.time() - t0:.2f} s", flush=True)
+    for lib in [kernels.library_path("histogram")] + [
+            os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         HIST_EXTRA_DIR, f"lib{x}.so") for x in extras]:
+        # the main path's instances: 4-row loads, 3 channels, int and f32
+        for func, (usage, ops) in sass_summary(lib, kernels).items():
+            if "hist_kernelILb" in func and "ELi4ELi3EE" in func:
+                mode = "int" if "hist_kernelILb1" in func else "f32"
+                print(f"sass {os.path.basename(str(lib))} {mode} mode "
+                      f"(C=3): {usage}; atomics {ops}", flush=True)
 
     n_full_pad = pad_rows(N_FULL, Config({}).tpu_rows_per_block)
     hist = histogram_phase(dev, th, tp, n_full_pad)
     comp = compaction_phase(dev, tc)
     part = partition_phase(dev, tp, n_full_pad)
     probes = probe_phase(dev, hp, th)
-    train = train_phase(lgt, th, tc, tp)
-    full = full_row_phase(lgt, th, tc, tp, n_full_pad)
+    rec = HistRecorder(serial, th)
+    train = train_phase(lgt, th, tc, tp, rec)
+    full = full_row_phase(lgt, th, tc, tp, n_full_pad, rec, extras)
+    rec.close()
+    replay = replay_phase(dev, th, rec.calls, extras)
+    del rec
 
     h, c, p = hist["masked"], comp["goss"], part["half"]
     fl = {m: r["launches"] for m, r in full.items()}
@@ -687,7 +996,8 @@ def main():
              plain_ms=h["int_plain_ms"], bound_ms=h["bound_ms"],
              bound_by=h["bound_by"], library_ms=h["library_ms"],
              max_abs_diff=h["int_max_abs_err"], kernel_ms=h["int_ms"],
-             shapes={k: v for k, v in hist.items()}),
+             shapes={k: v for k, v in hist.items()},
+             replay=[{k: r[k] for k in REPLAY_KEYS} for r in replay]),
         dict(name="compact_rows", route="cuda",
              source="lightgbm_tpu_torch/csrc/compact.cu",
              replaces="lightgbm_tpu/ops/compact.py:166",
@@ -718,6 +1028,9 @@ def main():
               kernels_line["train"]["goss_it_per_s"]):
         if not math.isfinite(v):
             raise AssertionError("non-finite iteration rate")
+    if json_out:
+        with open(json_out, "w") as fh:
+            json.dump(dict(kernels_line, replay=replay), fh, indent=1)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -726,4 +1039,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

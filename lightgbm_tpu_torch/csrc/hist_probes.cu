@@ -6,7 +6,8 @@
 //                            * bf16(vals_t[c, r])
 //
 // bins_t [F, n] uint8, vals_t [C, n] f32, leaf_id [n] i32, small_ids [K] i32
-// (K <= 32; an id that matches no row gives a zero histogram), output
+// (K <= 32; a row with a negative leaf id matches no lane, and a lane
+// whose id matches no row -- e.g. -1 -- gets a zero histogram), output
 // [K, F, B, C] f32 zeroed by the caller; sums in f32 (atomics, so the order
 // varies from run to run).
 //
@@ -70,7 +71,8 @@ __device__ void load_lanes(uint32_t* table, int32_t* ids,
 
 __device__ __forceinline__ uint32_t lanes_of(int lid, const uint32_t* table,
                                              const int32_t* ids, int K) {
-  if (lid >= 0 && lid < kTable) return table[lid];
+  if (lid < 0) return 0u;               // a negative id matches no lane
+  if (lid < kTable) return table[lid];
   uint32_t mask = 0u;
   for (int k = 0; k < K; ++k) mask |= (ids[k] == lid) ? (1u << k) : 0u;
   return mask;

@@ -10,6 +10,8 @@ Both compute ``multi_leaf_histogram`` in f32 mode: values rounded to bf16,
 sums in f32, output ``[K, F, B, C]``. For CUDA tensors the wrappers launch
 the hand-written kernels of ``csrc/hist_probes.cu`` (design notes there);
 for CPU tensors they run ``multi_leaf_histogram_plain(int_mode=False)``.
+They keep its rule for negative ids: a row with a negative leaf id
+matches no lane, and a lane with a negative id gets a zero histogram.
 The kernels take at most 32 lanes; the 1-D probe also needs one
 feature's ``[K][B][C]`` f32 tile to fit in shared memory, and its launch
 raises where it does not.

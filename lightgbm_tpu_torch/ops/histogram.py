@@ -18,7 +18,8 @@ builds the histograms of K leaves at once,
 package: f32 mode rounds each value to bf16 and sums in f32 (sums depend
 on the order, so kernel and plain agree to a tolerance); ``int_mode``
 (quantized gradients) sums integer levels exactly in int32 and casts to
-f32 (bit-equal in any order).
+f32 (bit-equal in any order). Rows with a negative leaf id (the -1 rows
+of ``partition.slice_spans`` windows) match no lane.
 """
 from __future__ import annotations
 
@@ -65,7 +66,8 @@ def multi_leaf_histogram_plain(bins_t: torch.Tensor, vals_t: torch.Tensor,
                                small_ids: torch.Tensor, *, num_bins: int,
                                int_mode: bool = False) -> torch.Tensor:
     """Plain torch version of the kernel (same contract): one
-    ``index_add_`` per lane over the lane's rows."""
+    ``index_add_`` per lane over the lane's rows; rows with a negative
+    leaf id take part in no lane."""
     F, n = bins_t.shape
     C = vals_t.shape[0]
     K = small_ids.shape[0]
@@ -78,8 +80,9 @@ def multi_leaf_histogram_plain(bins_t: torch.Tensor, vals_t: torch.Tensor,
     out = torch.zeros((K, F * B, C), dtype=vals.dtype, device=dev)
     flat = (bins_t.to(torch.int64)
             + (torch.arange(F, device=dev, dtype=torch.int64) * B)[:, None])
+    valid = leaf_id >= 0
     for k in range(K):
-        sel = leaf_id == small_ids[k]
+        sel = valid & (leaf_id == small_ids[k])
         idx = flat[:, sel].reshape(-1)                  # [F * m], f-major
         v = vals[:, sel].T                              # [m, C]
         out[k].index_add_(0, idx, v.repeat(F, 1))
@@ -96,14 +99,19 @@ def multi_leaf_histogram(bins_t: torch.Tensor, vals_t: torch.Tensor,
       bins_t: ``[F, n]`` uint8 feature-major binned matrix.
       vals_t: ``[C, n]`` float32 per-row values (grad*m, hess*m, count).
       leaf_id: ``[n]`` int32 current leaf of each row.
-      small_ids: ``[K]`` int32 leaf ids to histogram (an id matching no
-        row, such as -1, gives a zero histogram).
+      small_ids: ``[K]`` int32 leaf ids to histogram. A row with a
+        negative leaf id matches no lane, so a negative lane id (an
+        inactive lane, -1) gives a zero histogram, as does an id that no
+        row carries. (The reference documents this rule for -1 lanes; its
+        ``lid == small`` compare also sums -1 rows into -1 lanes, which no
+        caller reads.)
       num_bins: histogram width B (every bin id must be below it).
       int_mode: values are integer levels; sum them exactly.
 
     Returns:
       ``[K, F, B, C]`` float32, on the inputs' device. CPU tensors take
-      ``multi_leaf_histogram_plain``; CUDA tensors launch the kernel
+      ``multi_leaf_histogram_plain``; CUDA tensors launch the kernel, one
+      launch that writes the f32 output itself
       (``multi_leaf_histogram.launches`` counts the launches).
     """
     _check_inputs(bins_t, vals_t, leaf_id, small_ids, num_bins)
@@ -117,19 +125,39 @@ def multi_leaf_histogram(bins_t: torch.Tensor, vals_t: torch.Tensor,
     F, n = bins_t.shape
     C = vals_t.shape[0]
     K = small_ids.shape[0]
-    out = torch.zeros((K, F, num_bins, C),
-                      dtype=torch.int32 if int_mode else torch.float32,
-                      device=dev)
-    rc = _lib().lgbt_multi_leaf_histogram(
-        bins_t.data_ptr(), vals_t.data_ptr(), leaf_id.data_ptr(),
-        small_ids.data_ptr(), n, F, C, K, num_bins, int(int_mode),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if n == 0 or F == 0 or K == 0:
+        return torch.zeros((K, F, num_bins, C), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((K, F, num_bins, C), dtype=torch.float32, device=dev)
+    lib = _lib()
+    ptrs = (bins_t.data_ptr(), vals_t.data_ptr(), leaf_id.data_ptr())
+    stream = torch.cuda.current_stream(dev)
+    scratch = _scratch(stream, lib.lgbt_multi_leaf_histogram_scratch(
+        *ptrs, n, F, C, K, num_bins))
+    rc = lib.lgbt_multi_leaf_histogram(
+        *ptrs, small_ids.data_ptr(), n, F, C, K, num_bins, int(int_mode),
+        scratch.data_ptr(), out.data_ptr(), stream.cuda_stream)
     kernels.check(rc, "multi_leaf_histogram")
     multi_leaf_histogram.launches += 1
-    return out.to(torch.float32) if int_mode else out
+    return out
 
 
 multi_leaf_histogram.launches = 0
+
+# the kernel's scratch (per-CTA partial histograms), one buffer per
+# stream, grown as needed and kept: its contents never matter between
+# calls, and calls on one stream run in order
+_SCRATCH = {}
+
+
+def _scratch(stream, nbytes: int) -> torch.Tensor:
+    key = (stream.device, stream.cuda_stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                          device=stream.device)
+        _SCRATCH[key] = buf
+    return buf
 
 
 def _lib() -> ctypes.CDLL:
@@ -137,6 +165,9 @@ def _lib() -> ctypes.CDLL:
     fn = lib.lgbt_multi_leaf_histogram
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p] * 2)
+                       + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
+        q = lib.lgbt_multi_leaf_histogram_scratch
+        q.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+        q.restype = ctypes.c_longlong
     return lib

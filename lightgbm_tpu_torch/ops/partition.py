@@ -223,8 +223,9 @@ def slice_spans(bins_p: torch.Tensor, vals_p: torch.Tensor,
     ``budget``-wide column windows (starts clamped into range) of the
     feature-major arrays, concatenated. Positions inside a window that
     belong to a NEIGHBOURING leaf get leaf id -1, so each row of each
-    elected child contributes once, to its own lane. The windows are one
-    device gather: no host read of the offsets."""
+    elected child contributes once, to its own lane: a -1 row matches no
+    lane of ``multi_leaf_histogram``, inactive -1 lanes included. The
+    windows are one device gather: no host read of the offsets."""
     n = leaf_p.shape[0]
     S = int(budget)
     dev = leaf_p.device

@@ -118,6 +118,58 @@ def test_histogram_kernel_on_spans(cuda_device, int_mode):
     assert torch.equal(out.cpu(), plain)
 
 
+@pytest.mark.parametrize("int_mode", [True, False])
+@pytest.mark.parametrize("case", [
+    "one_lane_all_rows", "skewed_bins", "k40_two_groups", "c1", "c8",
+    "b63", "b255", "n_misaligned", "wide_blocks"])
+def test_histogram_kernel_shapes(cuda_device, int_mode, case):
+    """The kernel's paths: one live lane over every row (32 replicas),
+    90% of each feature's rows in one bin, K > 32 (two lane groups), one
+    and eight channels (eight: fewer lanes per group), odd and near-full
+    bin counts, n % 4 != 0 (the scalar path), and n >= 2^19 (blocks of
+    two features, an odd F). Int mode bit-equal to the plain version;
+    f32 mode bit-equal on exact-sum values."""
+    n, F, B, C, K, n_leaves = 100_000, 6, 256, 3, 8, 8
+    if case == "one_lane_all_rows":
+        n, F = 200_000, 28
+    elif case == "k40_two_groups":
+        K, n_leaves = 40, 46
+    elif case in ("c1", "c8"):
+        C = int(case[1:])
+        K = 32 if case == "c8" else K
+    elif case in ("b63", "b255"):
+        B = int(case[1:])
+    elif case == "n_misaligned":
+        n, F = 10_001, 5
+    elif case == "wide_blocks":         # n >= 2^19: two-feature blocks
+        n, F, K, n_leaves = 600_000, 5, 32, 40
+    rng = np.random.default_rng(len(case) + 7 * int_mode)
+    bins = rng.integers(0, B, size=(F, n)).astype(np.uint8)
+    if case == "skewed_bins":
+        bins[rng.random((F, n)) < 0.9] = 17
+    leaf = rng.integers(0, n_leaves, size=n).astype(np.int32)
+    ids = np.arange(K, dtype=np.int32)
+    ids[3::7] = -1
+    if case == "one_lane_all_rows":
+        leaf[:] = 0
+        ids[:] = -1
+        ids[0] = 0
+    vals = (torch.from_numpy(rng.integers(-3, 4, size=(C, n))
+                             .astype(np.float32)) if int_mode
+            else _exact_f32_vals(rng, C, n))
+    args = [torch.from_numpy(bins), vals, torch.from_numpy(leaf),
+            torch.from_numpy(ids)]
+    plain = th.multi_leaf_histogram_plain(*args, num_bins=B,
+                                          int_mode=int_mode)
+    before = th.multi_leaf_histogram.launches
+    out = th.multi_leaf_histogram(*[a.to(cuda_device) for a in args],
+                                  num_bins=B, int_mode=int_mode)
+    assert th.multi_leaf_histogram.launches == before + 1
+    out = out.cpu()
+    assert torch.equal(out, plain)
+    assert bool((out[torch.from_numpy(ids < 0)] == 0).all())
+
+
 @pytest.mark.parametrize("n,F,C,frac,R", [
     (65_536, 28, 4, 0.3, 1024), (65_536, 28, 4, 1.0, 1024),
     (8192, 3, 2, 0.0, 256), (20_480, 9, 5, 0.05, 512)])

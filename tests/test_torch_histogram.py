@@ -61,6 +61,33 @@ def test_int_mode_bit_equal_to_reference(n, F, B, C, small_ids):
             assert np.all(out[k] == 0.0)
 
 
+@pytest.mark.parametrize("n,F,B,C,small_ids", [
+    (4096, 6, 32, 3, [3, -1, 0, 5, -1]),
+    (2048, 28, 256, 3, [-1, 1, 1, 7]),     # a repeated id beside -1
+])
+def test_negative_rows_match_no_lane(n, F, B, C, small_ids):
+    """Rows with leaf id -1 (the partition's span windows give them to
+    neighbouring leaves' rows) match no lane: the port's live lanes are
+    bit-equal to the reference and its -1 lanes are zero. The reference's
+    ``lid == small`` compare sums the -1 rows into its -1 lanes instead;
+    no caller reads those lanes, so the port drops them on purpose."""
+    bins, vals, leaf_id = _data(n, F, B, C, 8, True, seed=n + 3 * F)
+    leaf_id[np.random.default_rng(n).random(n) < 0.4] = -1
+    ids = np.asarray(small_ids, np.int32)
+    ref = _jax(bins, vals, leaf_id, ids, B)
+    out = _port(bins, vals, leaf_id, ids, B, int_mode=True)
+    live, dead = ids >= 0, ids < 0
+    np.testing.assert_array_equal(out[live], ref[live])
+    assert np.all(out[dead] == 0.0)
+    # the reference's -1 lanes: the -1 rows' sums, feature by feature
+    neg = leaf_id == -1
+    for f in range(F):
+        want = np.zeros((B, C), np.float32)
+        np.add.at(want, bins[neg, f], vals[neg])
+        for k in np.flatnonzero(dead):
+            np.testing.assert_array_equal(ref[k, f], want)
+
+
 @pytest.mark.parametrize("n,F,B,K", [(2048, 6, 32, 4), (4096, 28, 256, 8)])
 def test_f32_mode_within_order_tolerance(n, F, B, K):
     """f32 mode: same bf16-rounded operands, f32 sums in another order.
