@@ -16,7 +16,9 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
 3. the two histogram probe kernels at their probe shapes (the 1-D probe,
    and the nibble probe at nb = 16, 32, 64) within the f32 tolerance of
    the plain version and bit-equal to it on exact-sum inputs, timed
-   beside kernel A in f32 mode;
+   beside kernel A in f32 mode; the nibble probe's cluster plan is
+   printed per nb, and a nibble-probe source under ``build/hist_extra/``
+   (an earlier ``hist_probes.cu``) is timed beside it in turns;
 4. the Higgs flagship (1M rows x 28 features, binary, 127 leaves, 255
    bins, GOSS with the compacted histogram buffer, quantized gradients)
    for 16 rounds through ``Booster.update``: holdout AUC and a model-text
@@ -350,10 +352,12 @@ class HistRecorder:
 
 
 def start_extra_builds(kernels):
-    """Start one ``nvcc`` for each histogram source under
-    ``build/hist_extra/`` (an earlier ``histogram.cu``, or a variant of
-    it, with the same C entry point and a zeroed output); the directory
-    is git-ignored and usually absent. Returns {name: (process, .so)}."""
+    """Start one ``nvcc`` for each source under ``build/hist_extra/``: an
+    earlier ``histogram.cu`` or a variant of it (C entry
+    ``lgbt_multi_leaf_histogram``, a zeroed output), or an earlier
+    ``hist_probes.cu`` or a variant of it (C entry
+    ``lgbt_hist_probe_nibble``, a zeroed output). The directory is
+    git-ignored and usually absent. Returns {name: (process, .so)}."""
     root = os.path.dirname(os.path.abspath(__file__))
     src_dir = os.path.join(root, HIST_EXTRA_DIR)
     if not os.path.isdir(src_dir):
@@ -372,20 +376,25 @@ def start_extra_builds(kernels):
 
 
 def finish_extra_builds(jobs):
-    """Wait for ``start_extra_builds``; returns {name: C entry point}."""
+    """Wait for ``start_extra_builds``; returns ({name: histogram C
+    entry}, {name: nibble-probe C entry}, {name: .so path})."""
     import ctypes
-    fns = {}
+    hists, nibbles, paths = {}, {}, {}
     for name, (proc, so) in jobs.items():
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {HIST_EXTRA_DIR}/{name}.cu"
                                f":\n{text}")
-        fn = ctypes.CDLL(so).lgbt_multi_leaf_histogram
+        lib = ctypes.CDLL(so)
+        paths[name] = so
+        nibble = hasattr(lib, "lgbt_hist_probe_nibble")
+        fn = (lib.lgbt_hist_probe_nibble if nibble
+              else lib.lgbt_multi_leaf_histogram)
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+        (nibbles if nibble else hists)[name] = fn
+    return hists, nibbles, paths
 
 
 def extra_histogram(fn, bins, vals, leaf, ids, num_bins, int_mode):
@@ -402,6 +411,21 @@ def extra_histogram(fn, bins, vals, leaf, ids, num_bins, int_mode):
     if rc != 0:
         raise RuntimeError(f"extra histogram kernel: CUDA error {rc}")
     return out.to(torch.float32) if int_mode else out
+
+
+def extra_nibble(fn, bins, vals, leaf, ids, num_bins, nb):
+    """One call of an extra nibble-probe library, wrapped as the earlier
+    wrapper did: a zeroed f32 output, then the kernel."""
+    F, n = bins.shape
+    C, K = vals.shape[0], ids.shape[0]
+    out = torch.zeros((K, F, num_bins, C), device=bins.device,
+                      dtype=torch.float32)
+    rc = fn(bins.data_ptr(), vals.data_ptr(), leaf.data_ptr(),
+            ids.data_ptr(), n, F, C, K, num_bins, nb, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"extra nibble probe kernel: CUDA error {rc}")
+    return out
 
 
 def sass_summary(lib_path, kernels):
@@ -609,12 +633,17 @@ def partition_phase(dev, tp, n):
     return res
 
 
-def probe_phase(dev, hp, th):
+def probe_phase(dev, hp, th, nibble_extras, nibble_usage):
     """The two probe kernels at their probe shapes, each held against the
     plain version (within the f32 tolerance, and bit for bit on exact-sum
-    inputs) and timed beside kernel A in f32 mode. The probes are on no
-    training path: their launches count this phase's checked calls (two
-    per shape, and per nb for the nibble probe)."""
+    inputs) and timed beside kernel A in f32 mode. The nibble probe is
+    also timed in turns (kernel, extras, extras, kernel) with every
+    nibble-probe source under ``build/hist_extra/`` (an earlier
+    ``hist_probes.cu`` or a stripped copy: timed, not checked) at each
+    nb, and its launch plan and registers (``nibble_usage``) are printed
+    per nb. The probes are on no training path: their launches count this
+    phase's checked calls (two per shape, and per nb for the nibble
+    probe)."""
     hp.hist_probe_1d.launches = hp.hist_probe_nibble.launches = 0
     res, launches = {}, {}
     for name, (F, n, B, K, C) in PROBE_SHAPES.items():
@@ -651,6 +680,8 @@ def probe_phase(dev, hp, th):
                     r[tag]["max_abs_err"] = err
         launches[name] = getattr(hp, name).launches   # the checked calls
         for tag, fn in variants.items():
+            if name == "hist_probe_nibble" and tag != "kernel_a":
+                continue                   # timed in turns below
             r[tag]["ms"] = time_ms(lambda: fn(vals))
         plain_ms = time_ms(lambda: th.multi_leaf_histogram_plain(
             bins, vals, leaf, ids, num_bins=B), reps=3, warmup=1)
@@ -663,6 +694,40 @@ def probe_phase(dev, hp, th):
         del idx, src
         nbytes = 4 * n + (F + 4 * C) * m + 4 * K * F * B * C
         b_ms, b_by = bound(nbytes, pairs * F * C)
+        if name == "hist_probe_nibble":
+            for nb in hp.NIBBLE_WIDTHS:
+                tag = f"nb{nb}"
+                fns = {"kernel": lambda nb=nb: hp.hist_probe_nibble(
+                    bins, vals, leaf, ids, num_bins=B, nb=nb)}
+                for x, fn in nibble_extras.items():
+                    fns[x] = (lambda fn=fn, nb=nb: extra_nibble(
+                        fn, bins, vals, leaf, ids, B, nb))
+                times = {x: [] for x in fns}
+                for x in list(fns) + list(fns)[::-1]:
+                    times[x].append(time_ms(fns[x]))
+                ms = {x: sum(t) / len(t) for x, t in times.items()}
+                plan = hp.nibble_plan(bins, vals, leaf, ids, num_bins=B,
+                                      nb=nb)
+                r[tag].update(ms=ms.pop("kernel"), turns=times,
+                              earlier_ms=ms, plan=plan)
+                print(f"{name} nb={nb}: cluster {plan['cluster']} CTAs, "
+                      f"tile w={plan['w']} bins, "
+                      f"{plan['pairs_per_chunk']} (feature, group) pairs "
+                      f"= up to {plan['features_per_chunk']} features per "
+                      f"chunk, {plan['chunks']} chunks on "
+                      f"{plan['clusters']} clusters (resident "
+                      f"{plan['resident_clusters']}), passes per cluster "
+                      f"{-(-plan['chunks'] // plan['clusters'])}, CTAs "
+                      f"{plan['clusters'] * plan['cluster']}, shared "
+                      f"memory per CTA {plan['smem_per_cta']} B, rows per "
+                      f"CTA {plan['rows_per_cta']}; registers "
+                      f"{nibble_usage}; in turns: kernel "
+                      f"{r[tag]['ms']:.4f} ms " + "".join(
+                          f"({x} {t:.4f} ms, {x} / kernel "
+                          f"{t / r[tag]['ms']:.3f}) " for x, t in ms.items())
+                      + f"{times}; index_add_ {lib_ms:.4f} ms, kernel A "
+                      f"f32 {r['kernel_a']['ms']:.4f} ms, bound "
+                      f"{b_ms:.4f} ms", flush=True)
         res[name] = dict(F=F, n=n, B=B, K=K, C=C, matched_rows=m,
                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                          bound_by=b_by, variants=r)
@@ -937,24 +1002,33 @@ def main(argv):
     try:
         kernels.build()
     finally:
-        extras = finish_extra_builds(jobs)
+        extras, nibble_extras, extra_paths = finish_extra_builds(jobs)
     print(f"kernel build (nvcc, {len(kernels.KERNELS) + len(jobs)} sources "
           f"in parallel): {time.time() - t0:.2f} s", flush=True)
     for lib in [kernels.library_path("histogram")] + [
-            os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         HIST_EXTRA_DIR, f"lib{x}.so") for x in extras]:
+            extra_paths[x] for x in extras]:
         # the main path's instances: 4-row loads, 3 channels, int and f32
         for func, (usage, ops) in sass_summary(lib, kernels).items():
             if "hist_kernelILb" in func and "ELi4ELi3EE" in func:
                 mode = "int" if "hist_kernelILb1" in func else "f32"
                 print(f"sass {os.path.basename(str(lib))} {mode} mode "
                       f"(C=3): {usage}; atomics {ops}", flush=True)
+    nibble_usage = None
+    for lib in [kernels.library_path("hist_probes")] + [
+            extra_paths[x] for x in nibble_extras]:
+        # the probe shape's instance: 3 channels (4-row loads in a
+        # library whose kernel also has a 1-row instance)
+        for func, (usage, ops) in sass_summary(lib, kernels).items():
+            if "probe_nibble_kernelILi3E" in func and "ILi3ELi1E" not in func:
+                print(f"sass {os.path.basename(str(lib))} nibble probe "
+                      f"(C=3): {usage}; atomics {ops}", flush=True)
+                nibble_usage = nibble_usage or usage
 
     n_full_pad = pad_rows(N_FULL, Config({}).tpu_rows_per_block)
     hist = histogram_phase(dev, th, tp, n_full_pad)
     comp = compaction_phase(dev, tc)
     part = partition_phase(dev, tp, n_full_pad)
-    probes = probe_phase(dev, hp, th)
+    probes = probe_phase(dev, hp, th, nibble_extras, nibble_usage)
     rec = HistRecorder(serial, th)
     train = train_phase(lgt, th, tc, tp, rec)
     full = full_row_phase(lgt, th, tc, tp, n_full_pad, rec, extras)
@@ -984,7 +1058,15 @@ def main(argv):
                     kernel_a_f32_ms=pr["variants"]["kernel_a"]["ms"],
                     shapes={k: pr[k] for k in ("F", "n", "B", "K", "C",
                                                "matched_rows")},
-                    variants=pr["variants"])
+                    variants=pr["variants"], **(dict(
+                        ms_by_nb={nb: pr["variants"][f"nb{nb}"]["ms"]
+                                  for nb in hp.NIBBLE_WIDTHS},
+                        earlier_ms_by_nb={
+                            nb: pr["variants"][f"nb{nb}"]["earlier_ms"]
+                            for nb in hp.NIBBLE_WIDTHS},
+                        plan_by_nb={nb: pr["variants"][f"nb{nb}"]["plan"]
+                                    for nb in hp.NIBBLE_WIDTHS})
+                        if name == "hist_probe_nibble" else {}))
 
     kernels_line = {"kernels": [
         dict(name="multi_leaf_histogram", route="cuda",

@@ -3,8 +3,11 @@
 The port of the JAX package's two TPU probes of its histogram kernel,
 ``benchmarks/kernel_probe.py::hist1d`` (a row-block-only grid) and
 ``benchmarks/nibble_probe.py::hist_nibble`` (bins split as b = nb*u + v).
-On the card they are the variants that kernel A's next redesign
-(``csrc/histogram.cu``) is measured against; no training path runs them.
+On the card each answers a design question about kernel A
+(``csrc/histogram.cu``): the 1-D probe, rows read once per CTA for all
+features; the nibble probe, a histogram held by a thread-block cluster in
+distributed shared memory, with adds routed to the CTA that owns a
+(feature, bin group) tile. No training path runs them.
 
 Both compute ``multi_leaf_histogram`` in f32 mode: values rounded to bf16,
 sums in f32, output ``[K, F, B, C]``. For CUDA tensors the wrappers launch
@@ -14,7 +17,8 @@ They keep its rule for negative ids: a row with a negative leaf id
 matches no lane, and a lane with a negative id gets a zero histogram.
 The kernels take at most 32 lanes; the 1-D probe also needs one
 feature's ``[K][B][C]`` f32 tile to fit in shared memory, and its launch
-raises where it does not.
+raises where it does not. The nibble probe's launch raises when no
+cluster can be scheduled; ``nibble_plan`` gives the launch it picks.
 """
 from __future__ import annotations
 
@@ -77,9 +81,10 @@ hist_probe_1d.launches = 0
 def hist_probe_nibble(bins_t: torch.Tensor, vals_t: torch.Tensor,
                       leaf_id: torch.Tensor, small_ids: torch.Tensor, *,
                       num_bins: int, nb: int = 16) -> torch.Tensor:
-    """f32-mode multi-leaf histogram over bin groups of ``nb``: each CTA
-    keeps one feature's ``[nb][K][C]`` tile of one bin group. Arguments
-    and result as ``multi_leaf_histogram`` (f32 mode);
+    """f32-mode multi-leaf histogram over bin groups of ``nb``: a
+    ``[K][nb][C]`` tile per (feature, bin group), a chunk of the tiles
+    held by one thread-block cluster in its distributed shared memory.
+    Arguments and result as ``multi_leaf_histogram`` (f32 mode);
     ``hist_probe_nibble.launches`` counts kernel launches."""
     _check(bins_t, vals_t, leaf_id, small_ids, num_bins)
     if nb < 1:
@@ -98,6 +103,30 @@ def hist_probe_nibble(bins_t: torch.Tensor, vals_t: torch.Tensor,
 
 hist_probe_nibble.launches = 0
 
+NIBBLE_PLAN_FIELDS = ("w", "groups", "cluster", "pairs_per_chunk",
+                      "chunks", "clusters", "tiles_per_cta", "smem_per_cta",
+                      "resident_clusters", "rows_per_cta",
+                      "features_per_chunk")
+
+
+def nibble_plan(bins_t: torch.Tensor, vals_t: torch.Tensor,
+                leaf_id: torch.Tensor, small_ids: torch.Tensor, *,
+                num_bins: int, nb: int = 16) -> dict:
+    """The launch ``hist_probe_nibble`` picks for these CUDA tensors, as a
+    dict over ``NIBBLE_PLAN_FIELDS``: the tile width w, the cluster size,
+    the (feature, bin group) pairs per chunk (one pass over the rows
+    each), the clusters launched and resident, and per CTA its tiles,
+    shared memory and rows. ``CTAs = clusters x cluster``."""
+    _check(bins_t, vals_t, leaf_id, small_ids, num_bins)
+    if bins_t.device.type != "cuda":
+        raise ValueError(f"no probe kernel for device {bins_t.device}")
+    F, n = bins_t.shape
+    plan = (ctypes.c_int * len(NIBBLE_PLAN_FIELDS))()
+    rc = _lib().lgbt_hist_probe_nibble_plan(
+        n, F, vals_t.shape[0], small_ids.shape[0], num_bins, nb, plan)
+    kernels.check(rc, "hist_probe_nibble_plan")
+    return dict(zip(NIBBLE_PLAN_FIELDS, plan))
+
 
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("hist_probes")
@@ -108,4 +137,8 @@ def _lib() -> ctypes.CDLL:
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int
                            + [ctypes.c_void_p] * 2)
             fn.restype = ctypes.c_int
+    fn = lib.lgbt_hist_probe_nibble_plan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
     return lib

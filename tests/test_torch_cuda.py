@@ -283,3 +283,59 @@ def test_hist_probes_match_plain(cuda_device, probe, n, F, B, C, K, zeros):
     out = (fn(*cargs, num_bins=B) if probe == "1d"
            else fn(*cargs, num_bins=B, nb=int(probe[6:])))
     assert torch.equal(out.cpu(), plain)
+
+
+@pytest.mark.parametrize("n,F,B,C,K,nb,leaves", [
+    (65_536, 6, 256, 3, 1, 16, "lane0"),   # K = 1, every row in lane 0
+    (65_536, 5, 256, 3, 8, 1, "neg"),      # nb = 1: 256 tiles a feature
+    (65_536, 5, 256, 3, 8, 8, "neg"),
+    (65_536, 5, 256, 3, 8, 48, "neg"),     # nb does not divide B
+    (65_536, 5, 256, 3, 32, 512, "neg"),   # nb > B: one tile a feature
+    (65_536, 4, 256, 8, 32, 512, "neg"),   # a tile capped by shared memory
+    (20_000, 4, 255, 1, 5, 16, "neg"),     # B = 255, C = 1
+    (20_000, 4, 63, 8, 32, 16, "neg"),     # B = 63, C = 8
+    (4099, 3, 64, 3, 6, 16, "neg"),        # n % 4 != 0: the scalar path
+    (1_048_580, 4, 256, 3, 32, 32, "neg"),  # n >= 2^20
+])
+def test_nibble_cluster_kernel(cuda_device, n, F, B, C, K, nb, leaves):
+    """The cluster form of the nibble probe against the plain version:
+    within the f32 tolerance on normal values and bit-equal on exact-sum
+    values; rows with leaf id -1 match no lane and -1 lanes are zero."""
+    rng = np.random.default_rng(n + nb + C)
+    bins = torch.from_numpy(rng.integers(0, B, size=(F, n)).astype(np.uint8))
+    if leaves == "lane0":
+        leaf = torch.zeros(n, dtype=torch.int32)
+        ids = torch.zeros(1, dtype=torch.int32)
+    else:
+        leaf = torch.from_numpy(rng.integers(-1, K + 2, size=n)
+                                .astype(np.int32))
+        ids = np.arange(K, dtype=np.int32)
+        ids[1::4] = -1
+        ids = torch.from_numpy(ids)
+    cargs = [bins.to(cuda_device), None, leaf.to(cuda_device),
+             ids.to(cuda_device)]
+    plan = hp.nibble_plan(cargs[0], torch.zeros((C, n), device=cuda_device),
+                          cargs[2], cargs[3], num_bins=B, nb=nb)
+    assert 1 <= plan["cluster"] <= 16 and plan["clusters"] >= 1
+    # a tile's bins: nb, capped at B and at what fits in the shared memory
+    # beside the lane and bin tables (232,448 - 8,832 bytes) and a stage
+    # of 1024 rows (mask, bf16 values, 4 bytes of bins)
+    assert plan["w"] == min(nb, B, (223_616 - 1024 * (8 + 2 * C))
+                            // (K * C * 4))
+    for vals, exact in ((torch.from_numpy(rng.normal(size=(C, n))
+                                          .astype(np.float32)), False),
+                        (_exact_f32_vals(rng, C, n), True)):
+        plain = th.multi_leaf_histogram_plain(bins, vals, leaf, ids,
+                                              num_bins=B)
+        cargs[1] = vals.to(cuda_device)
+        before = hp.hist_probe_nibble.launches
+        out = hp.hist_probe_nibble(*cargs, num_bins=B, nb=nb).cpu()
+        assert hp.hist_probe_nibble.launches == before + 1
+        if exact:
+            assert torch.equal(out, plain)
+        else:
+            vb = vals.to(torch.bfloat16).float()
+            tol = 2.0 ** -20 * vb.abs().sum(1)
+            assert bool(((out - plain).abs() <= tol).all())
+        dead = (ids < 0).nonzero().flatten()
+        assert not out[dead].any()

@@ -5,15 +5,22 @@ histogram in f32 mode (bf16 operands, f32 sums). On the CPU they run
 ``multi_leaf_histogram_plain(int_mode=False)`` and must equal it exactly;
 against the JAX package's ``multi_leaf_histogram_xla`` (as its CPU tests
 run it) they agree within the f32 summation-order bound, 2^-20 x the
-channel's sum of |bf16 values|. Their kernels are held against the plain
-version on the card (tests/test_torch_cuda.py and chip_smoke.py).
+channel's sum of |bf16 values|. ``hist_probe_nibble`` is also held
+against the TPU probe it replaces, ``benchmarks/nibble_probe.py::
+hist_nibble``, run in Pallas interpret mode. Their kernels are held
+against the plain version on the card (tests/test_torch_cuda.py and
+chip_smoke.py).
 """
+import functools
+import importlib.util
 import math
+import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from lightgbm_tpu.ops.pallas_histogram import multi_leaf_histogram_xla
 from lightgbm_tpu_torch.ops import hist_probes as hp
@@ -75,3 +82,52 @@ def test_probes_refuse_more_than_32_lanes():
     for fn in (hp.hist_probe_1d, hp.hist_probe_nibble):
         with pytest.raises(ValueError, match="32 lanes"):
             fn(*args, num_bins=8)
+
+
+@pytest.fixture(scope="module")
+def nibble_probe():
+    """``benchmarks/nibble_probe.py`` imported unchanged as a module (its
+    timing loop is under ``__main__``; its module-level probe arrays take
+    about 40 MB)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmarks", "nibble_probe.py")
+    spec = importlib.util.spec_from_file_location("nibble_probe_ref", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("nb,B,K,n", [(16, 64, 4, 4096),
+                                      (32, 64, 8, 4096),
+                                      (64, 128, 6, 6144)])
+def test_nibble_matches_tpu_probe(nibble_probe, monkeypatch, nb, B, K, n):
+    """The port's nibble probe (CPU route) against the TPU probe itself,
+    ``hist_nibble`` with ``pl.pallas_call`` run in interpret mode, within
+    2^-20 x the channel's sum of |bf16 values| (the probe sums bf16
+    products in f32 on the matrix unit, in another order).
+
+    Where the reference differs, the inputs stay out of the way: its
+    ``lid == sm`` lets a -1 row match a -1 lane (the port's rule: a
+    negative leaf id matches no lane), so every leaf id here is
+    non-negative and the -1 lanes are zero in both; its ``n_hi =
+    num_bins // nb`` computes no bin at or above (B // nb) * nb, so B is
+    a multiple of nb; its grid ``n // rows_per_block`` needs n to be a
+    multiple of the block (2048)."""
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    F, C = 3, 3
+    rng = np.random.default_rng(nb + B + K)
+    bins = rng.integers(0, B, size=(F, n)).astype(np.uint8)
+    vals = rng.normal(size=(C, n)).astype(np.float32)
+    leaf = rng.integers(0, K + 2, size=n).astype(np.int32)
+    ids = np.arange(K, dtype=np.int32)
+    ids[[1, K - 2]] = -1                        # inactive lanes
+    args = [torch.from_numpy(a) for a in (bins, vals, leaf, ids)]
+    got = hp.hist_probe_nibble(*args, num_bins=B, nb=nb).numpy()
+    ref = np.asarray(nibble_probe.hist_nibble(
+        jnp.asarray(bins.astype(np.int8)), jnp.asarray(vals),
+        jnp.asarray(leaf), jnp.asarray(ids), num_bins=B, nb=nb))
+    assert ref.shape == got.shape == (K, F, B, C)
+    assert not got[[1, K - 2]].any() and not ref[[1, K - 2]].any()
+    vb = args[1].to(torch.bfloat16).float().abs().sum(1).numpy()
+    assert np.all(np.abs(got - ref) <= 2.0 ** -20 * vb)
