@@ -7,12 +7,16 @@ Run from the root of a checkout, with no arguments:
 It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once) and then runs these phases:
 
-1. kernel A (multi-leaf histogram) and kernel B (row compaction) against
-   their plain torch versions at the training paths' shapes (kernel A
-   also at the 2M-row run's padded rows, on one span round of its
-   partition and with skewed bins), timed;
-2. the partition-move kernel at the 2M-row run's padded width (moved
-   fractions 0.5 and 0.001), bit-equal to its plain version, timed;
+1. kernel A (multi-leaf histogram) and kernel B (``compact_by_mask``, the
+   GOSS compaction) against their plain torch versions at the training
+   paths' shapes (kernel A also at the 2M-row run's padded rows, on one
+   span round of its partition and with skewed bins), timed; kernel B
+   over 20 launches bit-equal to the plain version;
+2. kernel B′ (``partition_move``) at the 2M-row run's padded width (moved
+   fractions 0.5 and 0.001), 20 launches bit-equal to its plain version
+   (columns, prefix sums and front size), timed; B and B′ are timed in
+   turns with the parent's whole main-path step (plan, zero-fills and
+   dest-driven kernel), built from ``build/move_parent/`` when present;
 3. the two histogram probe kernels at their probe shapes (the 1-D probe,
    and the nibble probe at nb = 16, 32, 64) within the f32 tolerance of
    the plain version and bit-equal to it on exact-sum inputs, timed
@@ -28,8 +32,10 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
    ``tpu_hist_partition=false`` and once with ``auto``: ``auto`` must
    engage the row partition and launch the move kernel every iteration,
    the two model texts must be byte-equal and the partition must scan
-   fewer rows; then two more iterations of each under torch.profiler
-   give the device's idle share;
+   fewer rows; then two more iterations of each (and of the flagship's
+   GOSS) under torch.profiler give the device's idle share, the move and
+   compaction kernels' device ms and the device-to-host copies per
+   iteration (at most 28 with the partition off, 36 on);
 6. the replay: the histogram calls of one tree of each training run,
    recorded on the way (the flagship's last full-row and last GOSS tree,
    one more tree of each full-row run, with the partition the first that
@@ -37,7 +43,10 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
    (int mode, and f32 mode on exact-sum values) and timed beside the
    plain version, an int and an f32 ``index_add_`` and the bound; a
    histogram source under ``build/hist_extra/`` (an earlier
-   ``histogram.cu``) is built and timed beside kernel A in turns.
+   ``histogram.cu``) is built and timed beside kernel A in turns;
+7. the partition sweep: full-row training with the partition off and on
+   in turns (off, on, on, off), 8 rounds a run, at 2M and 8M rows: it/s,
+   rows scanned, model text byte-equal.
 
 Each training run sets the kernels' launch counts to 0 just before it
 and reads them just after. The last two lines of standard output are the
@@ -79,6 +88,18 @@ INACTIVE_LANES = (5, 17, 30)     # lanes with small id -1 in a round
 # histogram sources timed beside kernel A on the recorded calls when
 # present (git-ignored; relative to this script's directory)
 HIST_EXTRA_DIR = os.path.join("build", "hist_extra")
+# the parent's dest-driven partition.cu and compact.cu, timed in turns
+# beside kernels B′ and B when present (git-ignored)
+MOVE_PARENT_DIR = os.path.join("build", "move_parent")
+REPEATS = 20                     # launches of B′ and B held to the plain one
+# kernel names whose device time trace_rounds reports per iteration
+STEP_KERNELS = ("partition_kernel", "compact_kernel")
+# the reads the training runs may make per iteration (the host's blocking
+# device-to-host copies): partition off, on
+MAX_DTOH = {"false": 28, "auto": 36}
+# partition off / on in turns at these rows, SWEEP_ROUNDS rounds a run
+SWEEP_ROWS = (2_000_000, 8_000_000)
+SWEEP_ROUNDS = 8
 # the replay numbers the per-kernel JSON line carries (--json-out PATH
 # writes them all)
 REPLAY_KEYS = ("tree", "kind", "n", "live_lanes", "matched_rows",
@@ -128,6 +149,38 @@ def time_ms(fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=20, warmup=3):
+    """Mean device time of ``fn`` in ms, host overhead excluded: a spin
+    kernel (``torch.cuda._sleep``) holds the device while the host queues
+    ``reps`` calls, so the CUDA events around them time only the device's
+    work and the gaps between its launches. The spin is doubled until it
+    outlasts the queueing (a few times at most: ``fn`` must not wait for
+    the device, as a boolean mask select does; time such calls with
+    ``time_ms``)."""
+    for _ in range(warmup):
+        fn()
+    cycles = 1 << 24
+    for _ in range(4):
+        torch.cuda.synchronize()
+        s0, start = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        end = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        queued_ms = (time.perf_counter() - t) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if s0.elapsed_time(start) > 1.2 * queued_ms:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise RuntimeError(f"device_ms: {reps} calls took {queued_ms:.2f} ms "
+                       "to queue, longer than the spin: the call waits "
+                       "for the device")
 
 
 def bound(nbytes, nops):
@@ -549,8 +602,106 @@ def replay_phase(dev, th, calls, extras):
     return rows
 
 
-def compaction_phase(dev, tc):
-    """Kernel B at the GOSS keep fraction and one edge fraction."""
+def start_parent_builds(kernels):
+    """Start one ``nvcc`` for each of ``partition.cu`` and ``compact.cu``
+    under ``build/move_parent/`` (the parent's dest-driven kernels B′ and
+    B, git-ignored and usually absent). Returns {name: (process, .so)}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    jobs = {}
+    for name in ("partition", "compact"):
+        src = os.path.join(root, MOVE_PARENT_DIR, f"{name}.cu")
+        if os.path.exists(src):
+            so = os.path.join(root, MOVE_PARENT_DIR, f"lib{name}.so")
+            jobs[name] = (subprocess.Popen(
+                [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", so, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), so)
+    return jobs
+
+
+def finish_parent_builds(jobs):
+    """Wait for ``start_parent_builds``; returns {name: C entry}."""
+    import ctypes
+    fns = {}
+    for name, (proc, so) in jobs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {MOVE_PARENT_DIR}/{name}.cu"
+                               f":\n{text}")
+        lib = ctypes.CDLL(so)
+        if name == "partition":
+            fn = lib.lgbt_partition_move
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p] * 4)
+        else:
+            fn = lib.lgbt_compact_rows
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p] * 3)
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def parent_move_step(fn, tp, bins, vals, leaf_old, leaf_new, out):
+    """The parent's main-path move step: the compare, ``plan_split_move``
+    and its dest-driven kernel."""
+    dest, n_front, cum = tp.plan_split_move(leaf_new != leaf_old)
+    F, n = bins.shape
+    rc = fn(bins.data_ptr(), vals.data_ptr(), leaf_new.data_ptr(),
+            dest.data_ptr(), n, F, vals.shape[0], out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"parent partition kernel: CUDA error {rc}")
+    return out, n_front, cum
+
+
+def parent_compact_step(fn, tc, bins, vals, keep, out_cols, R):
+    """The parent's main-path compaction step: ``plan_compaction``, two
+    zero-filled outputs and its dest-driven kernel."""
+    dest, aligned, rem = tc.plan_compaction(keep, R, out_cols)
+    F, n = bins.shape
+    C = vals.shape[0]
+    ob = torch.zeros((F, out_cols), dtype=torch.uint8, device=bins.device)
+    ov = torch.zeros((C, out_cols), dtype=torch.float32, device=bins.device)
+    rc = fn(bins.data_ptr(), vals.data_ptr(), dest.data_ptr(),
+            aligned.data_ptr(), rem.data_ptr(), n, F, C, R, out_cols,
+            ob.data_ptr(), ov.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"parent compaction kernel: CUDA error {rc}")
+    return ob, ov
+
+
+def in_turns(fns, reps=20):
+    """Time each callable in turns (order, then reversed), on the device
+    (``device_ms``) and per call as the host sees it back to back
+    (``time_ms``): ({name: mean device ms}, {name: mean call ms},
+    {name: [device ms, ...]})."""
+    dev_t = {x: [] for x in fns}
+    call_t = {x: [] for x in fns}
+    for x in list(fns) + list(fns)[::-1]:
+        dev_t[x].append(device_ms(fns[x], reps=reps))
+        call_t[x].append(time_ms(fns[x], reps=reps))
+    return ({x: sum(t) / len(t) for x, t in dev_t.items()},
+            {x: sum(t) / len(t) for x, t in call_t.items()}, dev_t)
+
+
+def same_bits(a, b):
+    """Bit equality of two tensors of one dtype (f32 compared as int32)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def compaction_phase(dev, tc, parent):
+    """Kernel B (``compact_by_mask``) at the GOSS flagship's shape (its
+    padded rows, keep fraction 0.3 into the 311,296-column buffer) and at
+    one edge fraction: bit-equal to the plain version over REPEATS
+    launches, then timed in turns with the parent's whole main-path step
+    (``plan_compaction``, two zero-fills and its kernel) when
+    ``build/move_parent/compact.cu`` is there, beside the plain version
+    and a mask select."""
     n, F, C, R = 1_003_520, 28, 4, 1024
     rng = np.random.default_rng(2)
     bins = torch.from_numpy(rng.integers(0, 256, size=(F, n))
@@ -559,77 +710,146 @@ def compaction_phase(dev, tc):
         .to(dev)
     out = {}
     for label, frac in (("goss", 0.3), ("edge", 0.001)):
-        mask = torch.from_numpy(rng.uniform(size=n) < frac).to(dev)
-        k = int(mask.sum())
+        keep = torch.from_numpy(rng.uniform(size=n) < frac).to(dev)
+        k = int(keep.sum())
         out_cols = (311_296 if label == "goss"
                     else tc.compaction_out_cols(k, R, 4096))
-        plan = tc.plan_compaction(mask, R, out_cols)
-        args = (bins, vals, *plan)
-        kw = dict(out_cols=out_cols, rows_per_block=R)
-        gb, gv = tc.compact_rows(*args, **kw)
-        pb, pv = tc.compact_rows_plain(*args, **kw)
+        pb, pv = tc.compact_by_mask_plain(bins, vals, keep, out_cols)
+        got = [tc.compact_by_mask(bins, vals, keep, out_cols)
+               for _ in range(REPEATS)]
         torch.cuda.synchronize()
-        if not (torch.equal(gb, pb) and torch.equal(
-                gv.view(torch.int32), pv.view(torch.int32))):
-            raise AssertionError(f"compaction {label}: kernel != plain")
-        ms = time_ms(lambda: tc.compact_rows(*args, **kw))
-        plain_ms = time_ms(lambda: tc.compact_rows_plain(*args, **kw),
-                           reps=5)
-        maskd = mask.clone()
-        lib_ms = time_ms(lambda: (bins[:, maskd], vals[:, maskd]), reps=5)
-        # every dest and block position, the k kept rows' columns, and
-        # the whole output (its tail is zeros) once
-        nbytes = (4 * n + 8 * (n // R) + (F + 4 * C) * k
-                  + (F + 4 * C) * out_cols)
+        bad = [i for i, (gb, gv) in enumerate(got)
+               if not (same_bits(gb, pb) and same_bits(gv, pv))]
+        if bad:
+            raise AssertionError(f"compaction {label}: launches {bad} of "
+                                 f"{REPEATS} differ from the plain version")
+        del got
+        fns = {"kernel": lambda: tc.compact_by_mask(bins, vals, keep,
+                                                    out_cols)}
+        if "compact" in parent:
+            ob, ov = parent_compact_step(parent["compact"], tc, bins, vals,
+                                         keep, out_cols, R)
+            if not (same_bits(ob, pb) and same_bits(ov, pv)):
+                raise AssertionError(f"compaction {label}: the parent's "
+                                     "step differs from the plain version")
+            fns["parent_step"] = lambda: parent_compact_step(
+                parent["compact"], tc, bins, vals, keep, out_cols, R)
+        ms, call_ms, turns = in_turns(fns)
+        plain_ms = time_ms(lambda: tc.compact_by_mask_plain(
+            bins, vals, keep, out_cols), reps=5)
+        lib_ms = time_ms(lambda: (bins[:, keep], vals[:, keep]), reps=5)
+        # the mask, the kept columns read once, the whole output (its tail
+        # is zeros) written once
+        nbytes = n + (F + 4 * C) * k + (F + 4 * C) * out_cols
         b_ms, b_by = bound(nbytes, 0)
-        out[label] = dict(n=n, kept=k, out_cols=out_cols, ms=ms,
-                          plain_ms=plain_ms, library_ms=lib_ms,
+        out[label] = dict(n=n, kept=k, out_cols=out_cols, ms=ms["kernel"],
+                          earlier_ms=ms.get("parent_step"),
+                          call_ms=call_ms["kernel"],
+                          earlier_call_ms=call_ms.get("parent_step"),
+                          turns=turns, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
-        print(f"compaction {label} keep={k}: kernel {ms:.4f} ms (plain "
-              f"{plain_ms:.3f} ms, mask select {lib_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms)", flush=True)
+        print(f"compaction {label} n={n} keep={k} out_cols={out_cols}: "
+              f"device ms: compact_by_mask {ms['kernel']:.4f}"
+              + (f", parent step (plan + zero-fills + kernel) "
+                 f"{ms['parent_step']:.4f}, parent / kernel "
+                 f"{ms['parent_step'] / ms['kernel']:.2f}"
+                 if "parent_step" in ms else "")
+              + f" (in turns {turns}); per call back to back: "
+              + ", ".join(f"{x} {t:.4f}" for x, t in call_ms.items())
+              + f"; plain {plain_ms:.3f} ms, mask select {lib_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms; {REPEATS} launches bit-equal",
+              flush=True)
     return out
 
 
-def partition_phase(dev, tp, n):
-    """The partition-move kernel at the full-row run's padded width: the
-    reference probe's worst moved fraction (0.5) and a sparse one."""
+def move_case(rng, n, frac, dev):
+    """Old and new leaf ids of one split batch: a fraction ``frac`` of
+    the positions changes its id."""
+    old = rng.integers(0, 127, size=n).astype(np.int32)
+    new = np.where(rng.uniform(size=n) < frac, old + 127, old)
+    return (torch.from_numpy(old).to(dev),
+            torch.from_numpy(new.astype(np.int32)).to(dev))
+
+
+def partition_phase(dev, tp, n, parent):
+    """Kernel B′ (``partition_move``) at the full-row run's padded width:
+    the reference probe's worst moved fraction (0.5) and a sparse one.
+    Bit-equal to the plain version (columns, cum, n_front) over REPEATS
+    launches, then timed in turns with the parent's whole main-path step
+    (the compare, ``plan_split_move`` and its kernel) when
+    ``build/move_parent/partition.cu`` is there, beside the plain version
+    and three ``index_copy_``."""
     F, C = HIST_F, HIST_C
     rng = np.random.default_rng(3)
     bins = torch.from_numpy(rng.integers(0, 256, size=(F, n))
                             .astype(np.uint8)).to(dev)
     vals = torch.from_numpy(rng.normal(size=(C, n)).astype(np.float32)) \
         .to(dev)
-    leaf = torch.from_numpy(rng.integers(0, 127, size=n).astype(np.int32)) \
-        .to(dev)
-    out = tuple(torch.empty_like(a) for a in (bins, vals, leaf))
     res = {}
     for label, frac in (("half", 0.5), ("sparse", 0.001)):
-        moved = torch.from_numpy(rng.uniform(size=n) < frac).to(dev)
-        dest, _, _ = tp.plan_split_move(moved)
-        args = (bins, vals, leaf, dest)
-        kb, kv, kl = tp.move_cols(*args, out=out)
-        pb, pv, pl = tp.move_rows_plain(*args)
-        torch.cuda.synchronize()
-        if not (torch.equal(kb, pb) and torch.equal(kl, pl) and torch.equal(
-                kv.view(torch.int32), pv.view(torch.int32))):
-            raise AssertionError(f"partition move {label}: kernel != plain")
-        ms = time_ms(lambda: tp.move_cols(*args, out=out))
-        plain_ms = time_ms(lambda: tp.move_rows_plain(*args), reps=5)
-        # library yardstick: one index_copy_ per array
-        d64 = dest.long()
-        lib_ms = time_ms(lambda: (out[0].index_copy_(1, d64, bins),
-                                  out[1].index_copy_(1, d64, vals),
-                                  out[2].index_copy_(0, d64, leaf)), reps=5)
-        # every dest, every column read once and written once
-        nbytes = 4 * n + 2 * (F + 4 * C + 4) * n
+        old, new = move_case(rng, n, frac, dev)
+        (pb, pv, pl), pnf, pcum = tp.partition_move_plain(bins, vals, old,
+                                                          new)
+        outs = [tuple(torch.empty_like(a) for a in (bins, vals, new))
+                for _ in range(2)]
+        bad = []
+        for i in range(REPEATS):
+            (kb, kv, kl), knf, kcum = tp.partition_move(
+                bins, vals, old, new, out=outs[i % 2])
+            torch.cuda.synchronize()
+            if not (same_bits(kb, pb) and same_bits(kv, pv)
+                    and same_bits(kl, pl) and same_bits(kcum, pcum)
+                    and int(knf) == int(pnf)):
+                bad.append(i)
+        if bad:
+            raise AssertionError(f"partition move {label}: launches {bad} "
+                                 f"of {REPEATS} differ from the plain "
+                                 "version")
+        out = outs[0]
+        fns = {"kernel": lambda: tp.partition_move(bins, vals, old, new,
+                                                   out=out)}
+        if "partition" in parent:
+            (ob, ov, ol), _, _ = parent_move_step(parent["partition"], tp,
+                                                  bins, vals, old, new,
+                                                  outs[1])
+            if not (same_bits(ob, pb) and same_bits(ov, pv)
+                    and same_bits(ol, pl)):
+                raise AssertionError(f"partition move {label}: the "
+                                     "parent's step differs from the plain"
+                                     " version")
+            fns["parent_step"] = lambda: parent_move_step(
+                parent["partition"], tp, bins, vals, old, new, out)
+        ms, call_ms, turns = in_turns(fns)
+        plain_ms = time_ms(lambda: tp.partition_move_plain(
+            bins, vals, old, new), reps=5)
+        # library yardstick: one index_copy_ per array, dest computed
+        # beforehand
+        d64 = tp.plan_split_move(new != old)[0].long()
+        lib_ms = device_ms(lambda: (out[0].index_copy_(1, d64, bins),
+                                    out[1].index_copy_(1, d64, vals),
+                                    out[2].index_copy_(0, d64, new)),
+                           reps=5)
+        # both leaf-id arrays, every column read once and written once,
+        # cum written once
+        nbytes = n * ((F + 4 * C + 8) + (F + 4 * C + 4) + 4)
         b_ms, b_by = bound(nbytes, 0)
-        res[label] = dict(n=n, moved=int(moved.sum()), ms=ms,
-                          plain_ms=plain_ms, library_ms=lib_ms,
+        res[label] = dict(n=n, moved=int((new != old).sum()),
+                          ms=ms["kernel"], earlier_ms=ms.get("parent_step"),
+                          call_ms=call_ms["kernel"],
+                          earlier_call_ms=call_ms.get("parent_step"),
+                          turns=turns, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
         print(f"partition move {label} n={n} moved={res[label]['moved']}: "
-              f"kernel {ms:.4f} ms (plain {plain_ms:.3f} ms, index_copy_ "
-              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms)", flush=True)
+              f"device ms: partition_move {ms['kernel']:.4f}"
+              + (f", parent step (compare + plan + kernel) "
+                 f"{ms['parent_step']:.4f}, parent / kernel "
+                 f"{ms['parent_step'] / ms['kernel']:.2f}"
+                 if "parent_step" in ms else "")
+              + f" (in turns {turns}); per call back to back: "
+              + ", ".join(f"{x} {t:.4f}" for x, t in call_ms.items())
+              + f"; plain {plain_ms:.3f} ms, index_copy_ {lib_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms; {REPEATS} launches bit-equal",
+              flush=True)
     return res
 
 
@@ -742,9 +962,10 @@ def probe_phase(dev, hp, th, nibble_extras, nibble_usage):
 def trace_rounds(bst, rounds):
     """``rounds`` more iterations under ``torch.profiler``: wall and
     device-busy ms per iteration (the union of the device's kernel and
-    copy intervals), the idle share, device-to-host copies per iteration
-    (the host's blocking reads) and the kernels with the most device
-    time. The profiler's own host overhead is in the wall time. Device
+    copy intervals), the idle share, the device ms of the move and
+    compaction kernels (``STEP_KERNELS``), device-to-host copies per
+    iteration (the host's blocking reads) and the kernels with the most
+    device time. The profiler's own host overhead is in the wall time. Device
     numbers are None when the trace holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -765,12 +986,15 @@ def trace_rounds(bst, rounds):
         per_name[e.name] = per_name.get(e.name, 0.0) + (b - a)
     if not dev_ev:
         return dict(wall_ms_per_iter=wall_ms, busy_ms_per_iter=None,
-                    idle_share=None, dtoh_per_iter=None, top_kernels=None)
+                    idle_share=None, step_ms_per_iter=None,
+                    dtoh_per_iter=None, top_kernels=None)
     busy_ms = busy_us / 1e3 / rounds
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    step = {k: sum(us for name, us in per_name.items() if k in name)
+            / 1e3 / rounds for k in STEP_KERNELS}
     return dict(
         wall_ms_per_iter=wall_ms, busy_ms_per_iter=busy_ms,
-        idle_share=1.0 - busy_ms / wall_ms,
+        idle_share=1.0 - busy_ms / wall_ms, step_ms_per_iter=step,
         dtoh_per_iter=sum("DtoH" in e.name or "Device -> Host" in e.name
                           for e in dev_ev) / rounds,
         top_kernels=[(name[:80], us / 1e3 / rounds) for name, us in top])
@@ -802,20 +1026,20 @@ def full_row_phase(lgt, th, tc, tp, n_pad, rec, extras):
             raise AssertionError("full-row run is not on quantized gradients")
         # this path: counts from 0 just before, read just after
         th.multi_leaf_histogram.launches = 0
-        tc.compact_rows.launches = 0
-        tp.move_cols.launches = 0
+        tc.compact_by_mask.launches = 0
+        tp.partition_move.launches = 0
         per_iter, secs = [], []
         for _ in range(ROUNDS):
-            m0 = tp.move_cols.launches
+            m0 = tp.partition_move.launches
             torch.cuda.synchronize()
             t = time.perf_counter()
             bst.update()
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t)
-            per_iter.append(tp.move_cols.launches - m0)
+            per_iter.append(tp.partition_move.launches - m0)
         launches = {"histogram": th.multi_leaf_histogram.launches,
-                    "compact": tc.compact_rows.launches,
-                    "partition": tp.move_cols.launches}
+                    "compact": tc.compact_by_mask.launches,
+                    "partition": tp.partition_move.launches}
         [(_, _, auc, _)] = bst.eval_valid()
         runs[mode] = dict(
             auc=auc, it_per_s=ROUNDS / sum(secs), first_iter_s=secs[0],
@@ -826,15 +1050,23 @@ def full_row_phase(lgt, th, tc, tp, n_pad, rec, extras):
               f"{runs[mode]['it_per_s']:.3f} it/s (first iteration "
               f"{secs[0]:.3f} s), holdout AUC {auc:.6f}, rows scanned "
               f"{eng.hist_rows_scanned:.0f}, launches {launches}, "
+              f"partition_move launches per iteration {per_iter}, "
               f"setup {setup_s:.2f} s", flush=True)
         # after the checked rounds: a traced pass for the idle share
         tr = runs[mode]["trace"] = trace_rounds(bst, TRACE_ROUNDS)
         print(f"full-row partition={mode} traced ({TRACE_ROUNDS} more "
               f"iterations): {tr['wall_ms_per_iter']:.2f} ms wall, "
               f"device busy {tr['busy_ms_per_iter']} ms, idle share "
-              f"{tr['idle_share']}, device-to-host copies per iteration "
+              f"{tr['idle_share']}, device ms per iteration of the move "
+              f"and compaction kernels {tr['step_ms_per_iter']}, "
+              f"device-to-host copies per iteration "
               f"{tr['dtoh_per_iter']}; top device time (ms per "
               f"iteration): {tr['top_kernels']}", flush=True)
+        if (tr["dtoh_per_iter"] or 0) > MAX_DTOH[mode]:
+            raise AssertionError(f"full-row partition={mode}: "
+                                 f"{tr['dtoh_per_iter']} device-to-host "
+                                 f"copies per iteration, more than "
+                                 f"{MAX_DTOH[mode]}")
         # after the trace: record one more tree's histogram calls; with
         # the partition, the first of up to SPAN_SEARCH more trees that
         # has a span round
@@ -895,6 +1127,59 @@ def full_row_phase(lgt, th, tc, tp, n_pad, rec, extras):
             for mode, r in runs.items()}
 
 
+def partition_sweep_phase(lgt, tp):
+    """The partition's speed policy (``tpu_hist_partition=auto``): full-row
+    training with the partition off and on in turns (off, on, on, off),
+    SWEEP_ROUNDS rounds a run, at each of SWEEP_ROWS rows: it/s over all
+    rounds and over all but the first, rows scanned, ``partition_move``
+    launches (counted from 0 for each run), model text byte-equal across
+    the four runs."""
+    res = {}
+    for n in SWEEP_ROWS:
+        t0 = time.time()
+        X, y = synth_higgs(n, N_FEAT, seed=0)
+        ds = lgt.Dataset(X, label=y)
+        del X
+        runs, texts = {"false": [], "auto": []}, set()
+        for mode in ("false", "auto", "auto", "false"):
+            bst = lgt.Booster(params=dict(FULL_PARAMS,
+                                          tpu_hist_partition=mode),
+                              train_set=ds)
+            eng = bst.engine
+            if eng.hist_partition != (mode == "auto"):
+                raise AssertionError(f"sweep n={n} {mode}: partition "
+                                     f"{eng.hist_partition}")
+            tp.partition_move.launches = 0
+            secs = []
+            for _ in range(SWEEP_ROUNDS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                bst.update()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+            runs[mode].append(dict(
+                it_per_s=len(secs) / sum(secs),
+                it_per_s_after_first=(len(secs) - 1) / sum(secs[1:]),
+                first_iter_s=secs[0], rows_scanned=eng.hist_rows_scanned,
+                move_launches=tp.partition_move.launches))
+            texts.add(bst.model_to_string())
+            del bst, eng
+        if len(texts) != 1:
+            raise AssertionError(f"sweep n={n}: model text differs between "
+                                 "the runs")
+        res[n] = dict(runs, seconds=time.time() - t0)
+        print(f"partition sweep n={n}, {SWEEP_ROUNDS} rounds a run, in turns"
+              f" (off, on, on, off), model text byte-equal: " + "; ".join(
+                  f"{mode} it/s {[round(r['it_per_s'], 3) for r in rs]} "
+                  f"(after the first iteration "
+                  f"{[round(r['it_per_s_after_first'], 3) for r in rs]}), "
+                  f"rows scanned {rs[0]['rows_scanned']:.0f}, "
+                  f"partition_move launches {rs[0]['move_launches']}"
+                  for mode, rs in runs.items())
+              + f"; phase {res[n]['seconds']:.1f} s", flush=True)
+    return res
+
+
 def train_phase(lgt, th, tc, tp, rec):
     """The GOSS flagship; ``rec`` records the histogram calls of the last
     full-row tree and of the last (GOSS) tree."""
@@ -914,12 +1199,13 @@ def train_phase(lgt, th, tc, tp, rec):
         raise AssertionError("the GOSS compacted buffer is not engaged")
     # the main path: counts from 0 just before, read just after
     th.multi_leaf_histogram.launches = 0
-    tc.compact_rows.launches = 0
-    tp.move_cols.launches = 0
+    tc.compact_by_mask.launches = 0
+    tp.partition_move.launches = 0
     per_iter, secs = [], []
     goss_start = int(1.0 / PARAMS["learning_rate"])
     for i in range(ROUNDS):
-        h0, c0 = th.multi_leaf_histogram.launches, tc.compact_rows.launches
+        h0 = th.multi_leaf_histogram.launches
+        c0 = tc.compact_by_mask.launches
         goss = eng.goss_active()
         rec.tag = ("goss_flagship_full_row" if i == goss_start - 1
                    else "goss_flagship_goss" if i == ROUNDS - 1 else None)
@@ -930,10 +1216,10 @@ def train_phase(lgt, th, tc, tp, rec):
         secs.append((goss, time.perf_counter() - t))
         rec.tag = None
         per_iter.append((th.multi_leaf_histogram.launches - h0,
-                         tc.compact_rows.launches - c0))
+                         tc.compact_by_mask.launches - c0))
     launches = {"histogram": th.multi_leaf_histogram.launches,
-                "compact": tc.compact_rows.launches,
-                "partition": tp.move_cols.launches}
+                "compact": tc.compact_by_mask.launches,
+                "partition": tp.partition_move.launches}
     masked_s = [s for g, s in secs if not g]
     goss_s = [s for g, s in secs if g]
     if launches["histogram"] <= 0 or launches["compact"] <= 0:
@@ -960,7 +1246,8 @@ def train_phase(lgt, th, tc, tp, rec):
     res = dict(auc=auc, roundtrip_max_diff=rt,
                masked_it_per_s=len(masked_s) / sum(masked_s),
                goss_it_per_s=len(goss_s) / sum(goss_s),
-               first_iter_s=secs[0][1], per_iter_launches=per_iter,
+               first_iter_s=secs[0][1], iter_s=[s for _, s in secs],
+               per_iter_launches=per_iter,
                launches=launches, trees_leaves=[t.num_leaves
                                                 for t in eng.models])
     print(f"train: {ROUNDS} rounds ({len(masked_s)} full-row, "
@@ -969,7 +1256,16 @@ def train_phase(lgt, th, tc, tp, rec):
           f"{secs[0][1]:.3f} s), GOSS {res['goss_it_per_s']:.3f} it/s; "
           f"model-text round trip max |diff| {rt:.3g}", flush=True)
     print(f"kernel launches per iteration (histogram, compaction): "
-          f"{per_iter}", flush=True)
+          f"{per_iter}; seconds per iteration "
+          f"{[round(s, 4) for _, s in secs]}", flush=True)
+    # after the checks: a traced pass over more GOSS iterations
+    tr = res["trace"] = trace_rounds(bst, TRACE_ROUNDS)
+    print(f"train GOSS traced ({TRACE_ROUNDS} more iterations): "
+          f"{tr['wall_ms_per_iter']:.2f} ms wall, device busy "
+          f"{tr['busy_ms_per_iter']} ms, idle share {tr['idle_share']}, "
+          f"device ms per iteration of the move and compaction kernels "
+          f"{tr['step_ms_per_iter']}, device-to-host copies per iteration "
+          f"{tr['dtoh_per_iter']}", flush=True)
     return res
 
 
@@ -999,12 +1295,15 @@ def main(argv):
     torch.cuda.set_device(dev)
     t0 = time.time()
     jobs = start_extra_builds(kernels)
+    pjobs = start_parent_builds(kernels)
     try:
         kernels.build()
     finally:
         extras, nibble_extras, extra_paths = finish_extra_builds(jobs)
+        parent = finish_parent_builds(pjobs)
     print(f"kernel build (nvcc, {len(kernels.KERNELS) + len(jobs)} sources "
-          f"in parallel): {time.time() - t0:.2f} s", flush=True)
+          f"in parallel, + {len(pjobs)} under {MOVE_PARENT_DIR}): "
+          f"{time.time() - t0:.2f} s", flush=True)
     for lib in [kernels.library_path("histogram")] + [
             extra_paths[x] for x in extras]:
         # the main path's instances: 4-row loads, 3 channels, int and f32
@@ -1026,8 +1325,8 @@ def main(argv):
 
     n_full_pad = pad_rows(N_FULL, Config({}).tpu_rows_per_block)
     hist = histogram_phase(dev, th, tp, n_full_pad)
-    comp = compaction_phase(dev, tc)
-    part = partition_phase(dev, tp, n_full_pad)
+    comp = compaction_phase(dev, tc, parent)
+    part = partition_phase(dev, tp, n_full_pad, parent)
     probes = probe_phase(dev, hp, th, nibble_extras, nibble_usage)
     rec = HistRecorder(serial, th)
     train = train_phase(lgt, th, tc, tp, rec)
@@ -1035,6 +1334,7 @@ def main(argv):
     rec.close()
     replay = replay_phase(dev, th, rec.calls, extras)
     del rec
+    sweep = partition_sweep_phase(lgt, tp)
 
     h, c, p = hist["masked"], comp["goss"], part["half"]
     fl = {m: r["launches"] for m, r in full.items()}
@@ -1080,22 +1380,26 @@ def main(argv):
              max_abs_diff=h["int_max_abs_err"], kernel_ms=h["int_ms"],
              shapes={k: v for k, v in hist.items()},
              replay=[{k: r[k] for k in REPLAY_KEYS} for r in replay]),
-        dict(name="compact_rows", route="cuda",
+        dict(name="compact_by_mask", route="cuda",
              source="lightgbm_tpu_torch/csrc/compact.cu",
+             core="lightgbm_tpu_torch/csrc/stable_partition.cuh",
              replaces="lightgbm_tpu/ops/compact.py:166",
              launches=train["launches"]["compact"],
              launches_by_path=path_launches("compact"),
              max_abs_err=c["max_abs_err"], ms=c["ms"],
+             earlier_step_ms=c["earlier_ms"],
              plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
              bound_by=c["bound_by"], library_ms=c["library_ms"],
              max_abs_diff=c["max_abs_err"], kernel_ms=c["ms"],
              shapes={k: v for k, v in comp.items()}),
         dict(name="partition_move", route="cuda",
              source="lightgbm_tpu_torch/csrc/partition.cu",
+             core="lightgbm_tpu_torch/csrc/stable_partition.cuh",
              replaces="lightgbm_tpu/ops/partition.py:129",
              launches=fl["auto"]["partition"],
              launches_by_path=path_launches("partition"),
              max_abs_err=p["max_abs_err"], ms=p["ms"],
+             earlier_step_ms=p["earlier_ms"],
              plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
              bound_by=p["bound_by"], library_ms=p["library_ms"],
              max_abs_diff=p["max_abs_err"], kernel_ms=p["ms"],
@@ -1105,7 +1409,8 @@ def main(argv):
         probe_entry("hist_probe_nibble", "nb16",
                     "benchmarks/nibble_probe.py:83"),
     ], "train": dict({k: v for k, v in train.items()
-                      if k not in ("trees_leaves",)}, full_row=full)}
+                      if k not in ("trees_leaves",)}, full_row=full,
+                     partition_sweep=sweep)}
     for v in (kernels_line["train"]["masked_it_per_s"],
               kernels_line["train"]["goss_it_per_s"]):
         if not math.isfinite(v):

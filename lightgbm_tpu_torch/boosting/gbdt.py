@@ -32,7 +32,7 @@ from ..io.dataset import Dataset
 from ..learner.serial import GrowConfig, grow_tree
 from ..metric import eval_metric_rows, metrics_for_config
 from ..objective import Objective, create_objective
-from ..ops.compact import compact_rows, compaction_out_cols, plan_compaction
+from ..ops.compact import compact_by_mask, compaction_out_cols
 from ..ops.predict import forest_predict_binned, tree_predict_binned
 from ..tree import Tree
 from ..utils import log
@@ -426,18 +426,15 @@ class GBDT:
 
     def _step_goss_compact(self, allowed: torch.Tensor):
         """GOSS with histogram-only compaction: the sampled rows move into
-        a fixed-size buffer (``compact_rows``) that the histograms scan;
+        a fixed-size buffer (``compact_by_mask``) that the histograms scan;
         the full-row leaf ids and score update stay as in the masked
         step."""
         d = self.data
         g, h = self.gradients(self.score)
         mask_gh, mask_count = self._goss(g, h)
         vals_all = torch.stack([g, h, mask_gh, mask_count])    # [4, n]
-        dest, algn, rem = plan_compaction(mask_count > 0, self.compact_rpb,
-                                          self.goss_n_sub)
-        bins_t_c, vc = compact_rows(d.bins_t, vals_all, dest, algn, rem,
-                                    out_cols=self.goss_n_sub,
-                                    rows_per_block=self.compact_rpb)
+        bins_t_c, vc = compact_by_mask(d.bins_t, vals_all, mask_count > 0,
+                                       self.goss_n_sub)
         gk, hk = vc[0] * vc[2], vc[1] * vc[2]
         vals_c, scale = self._vals(gk, hk, vc[3], self.goss_n_sub)
         cfg = dataclasses.replace(self.grow_cfg, hist_compact=True)

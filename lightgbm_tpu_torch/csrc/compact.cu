@@ -1,84 +1,152 @@
-// Row-compaction kernel for Hopper (sm_90a).
+// Row-compaction kernel for Hopper (sm_90a): kernel B.
 //
 // Replaces the Pallas TPU kernel lightgbm_tpu/ops/compact.py (compact_rows,
-// body _compact_kernel): stable stream compaction of the kept columns of
-// feature-major arrays. Row r of source block g = r / R is kept when
-// dest[r] >= 0 and lands at stream position
+// :166, body _compact_kernel :90) together with the plan that feeds it
+// (plan_compaction): a stable stream compaction of the kept columns of
+// feature-major arrays. Contract, with pos[r] = the number of kept columns
+// before column r:
 //
-//   pos = aligned[g] * 128 + rem[g] + dest[r]        (compact.py:265)
+//   out_bins[f, pos[r]] = bins_t[f, r]   [F, out_cols] uint8
+//   out_vals[c, pos[r]] = vals_t[c, r]   [C, out_cols] f32
 //
-// (plan_compaction already made these exact prefix positions), so
-//   out_bins[f, pos] = bins_t[f, r]   and   out_vals[c, pos] = vals_t[c, r].
-// Positions at or past out_cols are dropped, like the XLA twin's
-// mode="drop" scatter. The caller zeroes both outputs, so the tail past the
-// last kept row is zero.
+// for every kept column r (keep[r] != 0) with pos[r] < out_cols; the other
+// columns are dropped, and the tail [kept, out_cols) is zero. Bit-exact.
+// The TPU layout's 128-aligned block positions (aligned * 128 + rem) change
+// no position, so this is the same output.
 //
-// What bounds it on an H100: bytes -- dest (4 B/row), the aligned/rem
-// tables, every source column (F + 4*C B/row) read once, and the kept
-// columns written once. The TPU kernel moved columns with one-hot
-// permutation matmuls and a bf16x3 split because the TPU has no fast
-// computed scatter; a GPU store to a computed address is already exact and
-// cheap, so the kernel is a plain scatter.
+// What bounds it on an H100: bytes -- the keep mask (1 B a column), the
+// kept columns read once and the whole output written once ((F + 4 C) B a
+// column), 0.0084 ms at the GOSS flagship's shape. The TPU kernel moved
+// columns with one-hot permutation matmuls because the TPU has no fast
+// computed store; on the card a store to a computed address is exact.
 //
-// Design: one thread per source row and a group of channels
-// (grid.y = channel groups of kChanPerThread). Kept rows in a warp have
-// consecutive positions, so the stores coalesce where rows are dense;
-// dropped rows cost only the dest read.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What held the first design back (PERF.md): it was the last of four
+// steps (the compare, a plan of ~14 torch launches, two zero-fills, then a
+// scatter that read dest once per group of 8 channels and moved single
+// bytes).
+//
+// Design: one launch of the stable-partition core (stable_partition.cuh).
+// Each tile reads its keep mask, scans it, finds its output position by
+// the decoupled look-back and moves its kept columns as one run at that
+// position, stage by stage through shared memory, cut at out_cols. When no
+// tile is left a CTA waits for the last tile's inclusive prefix (the kept
+// count) and zeroes its share of the tail, so nothing zeroes the outputs
+// beforehand.
+#include "stable_partition.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChanPerThread = 8;
+using namespace sp;
 
-__global__ void __launch_bounds__(kThreads)
-compact_kernel(const uint8_t* __restrict__ bins_t,
-               const float* __restrict__ vals_t,
-               const int32_t* __restrict__ dest,
-               const int32_t* __restrict__ aligned,
-               const int32_t* __restrict__ rem,
-               int n, int F, int C, int R, int out_cols,
-               uint8_t* __restrict__ out_bins, float* __restrict__ out_vals) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const int d = dest[r];
-  if (d < 0) return;
-  const int g = r / R;
-  const long long pos = static_cast<long long>(aligned[g]) * 128 + rem[g] + d;
-  if (pos < 0 || pos >= out_cols) return;
-  const int ch0 = blockIdx.y * kChanPerThread;
-  const int ch1 = min(F + C, ch0 + kChanPerThread);
-  for (int ch = ch0; ch < ch1; ++ch) {
-    if (ch < F) {
-      out_bins[static_cast<size_t>(ch) * out_cols + pos] =
-          bins_t[static_cast<size_t>(ch) * n + r];
-    } else {
-      const int c = ch - F;
-      out_vals[static_cast<size_t>(c) * out_cols + pos] =
-          vals_t[static_cast<size_t>(c) * n + r];
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+compact_kernel(Rows a, const uint8_t* __restrict__ keep, int n,
+               int out_cols, unsigned char* scratch, unsigned epoch) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ unsigned s_cnt[kStrips * kWarps + 1];
+  __shared__ int s_tile;
+  __shared__ unsigned s_excl;
+  reset_next_counters(scratch, epoch);
+  unsigned* ctr = counters(scratch, epoch);
+  unsigned long long* status = status_words(scratch);
+  const int ntiles = static_cast<int>(num_tiles(n));
+  for (;;) {
+    const int t = claim_tile(&ctr[kClaimScan], &s_tile);
+    if (t >= ntiles) break;
+    const long long t0 = static_cast<long long>(t) * kTile;
+    const int cols = tile_cols(n, t0);
+    unsigned bits = 0;
+#pragma unroll
+    for (int k = 0; k < kStrips; ++k) {
+      const int c = k * kThreads + threadIdx.x;
+      if (c < cols && keep[t0 + c]) bits |= 1u << k;
     }
+    issue_stage(a, 0, t0, cols, smem);      // overlaps the scan
+    unsigned short ld[kStrips];
+    const unsigned kept = block_scan(bits, s_cnt, ld);
+    if (threadIdx.x < 32) {
+      const unsigned excl = lookback(status, t, kept, epoch);
+      if (threadIdx.x == 0) s_excl = excl;
+    }
+    __syncthreads();
+    const long long f0 = s_excl;
+#pragma unroll
+    for (int k = 0; k < kStrips; ++k)
+      if (!((bits >> k) & 1)) ld[k] = kNone;
+    const long long room = out_cols - f0;      // cut at out_cols
+    const int nfe = room <= 0 ? 0 : static_cast<int>(room < kept ? room
+                                                                  : kept);
+    move_tile(a, t0, cols, ld, static_cast<int>(kept), nfe, f0, 0, 0, smem);
   }
+  // every tile is taken: the last one's inclusive prefix is the kept count
+  if (threadIdx.x == 0)
+    s_excl = ntiles > 0 ? static_cast<unsigned>(wait_status(
+                              &status[ntiles - 1], epoch, kPrefix))
+                        : 0u;
+  __syncthreads();
+  const long long k0 = s_excl < static_cast<unsigned>(out_cols)
+                            ? s_excl : out_cols;
+  const long long gt = static_cast<long long>(blockIdx.x) * kThreads +
+                       threadIdx.x;
+  const long long nt = static_cast<long long>(gridDim.x) * kThreads;
+  for (int r = 0; r < a.F + a.C; ++r) {
+    const int es = r < a.F ? 1 : 4;
+    char* lo = dst_row(a, r) + k0 * es;
+    char* hi = dst_row(a, r) + static_cast<long long>(out_cols) * es;
+    char* v0 = reinterpret_cast<char*>(
+        (reinterpret_cast<uintptr_t>(lo) + 15) & ~uintptr_t(15));
+    char* v1 = reinterpret_cast<char*>(reinterpret_cast<uintptr_t>(hi) &
+                                       ~uintptr_t(15));
+    if (v0 >= v1) {
+      v0 = v1 = hi;
+    }
+    for (long long b = gt; b < v0 - lo; b += nt) lo[b] = 0;
+    for (long long b = gt; b < (v1 - v0) / 16; b += nt)
+      reinterpret_cast<uint4*>(v0)[b] = make_uint4(0, 0, 0, 0);
+    for (long long b = gt; b < hi - v1; b += nt) v1[b] = 0;
+  }
+}
+
+// CTAs of a launch over n columns (see resident_grid).
+int grid_for(int n) {
+  return resident_grid(reinterpret_cast<const void*>(compact_kernel),
+                       num_tiles(n));
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes): bins_t [F, n] uint8, vals_t
-// [C, n] f32, dest [n] i32, aligned/rem [n / R] i32; out_bins [F, out_cols]
-// uint8 and out_vals [C, out_cols] f32 zeroed by the caller. Returns
-// cudaGetLastError().
-extern "C" int lgbt_compact_rows(
-    const void* bins_t, const void* vals_t, const void* dest,
-    const void* aligned, const void* rem, int n, int F, int C, int R,
-    int out_cols, void* out_bins, void* out_vals, void* stream) {
-  if (n <= 0 || F + C <= 0) return 0;
-  if (R <= 0 || out_cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned groups = (F + C + kChanPerThread - 1) / kChanPerThread;
-  dim3 grid((n + kThreads - 1) / kThreads, groups);
-  compact_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(bins_t), static_cast<const float*>(vals_t),
-      static_cast<const int32_t*>(dest), static_cast<const int32_t*>(aligned),
-      static_cast<const int32_t*>(rem), n, F, C, R, out_cols,
-      static_cast<uint8_t*>(out_bins), static_cast<float*>(out_vals));
+// Plain C entry points (bound with ctypes).
+// Scratch bytes for n columns (lgbt_compact_by_mask's `scratch`).
+extern "C" long long lgbt_compact_scratch_bytes(int n) {
+  return scratch_bytes(n);
+}
+
+// CTAs of a launch over n columns (the tiles, capped at what fits on the
+// device at once); negative: a CUDA error.
+extern "C" int lgbt_compact_grid(int n) {
+  return grid_for(n);
+}
+
+// bins_t [F, n] uint8, vals_t [C, n] f32, keep [n] uint8 (non-zero: kept);
+// out_bins [F, out_cols] uint8 and out_vals [C, out_cols] f32, every
+// element written; scratch from lgbt_compact_scratch_bytes, zeroed when
+// allocated; epoch > 0, one more than the last launch that used this
+// scratch. Returns cudaGetLastError().
+extern "C" int lgbt_compact_by_mask(const void* bins_t, const void* vals_t,
+                                    const void* keep, int n, int F, int C,
+                                    int out_cols, void* out_bins,
+                                    void* out_vals, void* scratch,
+                                    unsigned epoch, void* stream) {
+  if (n < 0 || F < 0 || C < 0 || out_cols <= 0 || epoch == 0 ||
+      epoch >= (1u << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Rows a{static_cast<const char*>(bins_t), static_cast<const char*>(vals_t),
+         nullptr, static_cast<char*>(out_bins), static_cast<char*>(out_vals),
+         nullptr, F, C, 0, n, out_cols};
+  const int grid = grid_for(n);
+  if (grid < 0) return -grid;
+  compact_kernel<<<grid, kThreads, kSmemBytes,
+                   static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const uint8_t*>(keep), n, out_cols,
+      static_cast<unsigned char*>(scratch), epoch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,8 +41,8 @@ import numpy as np
 import torch
 
 from ..ops.histogram import multi_leaf_histogram
-from ..ops.partition import move_cols, plan_split_move, slice_spans, \
-    span_budgets, update_tables
+from ..ops.partition import partition_move, slice_spans, span_budgets, \
+    update_tables
 from ..ops.split import NEG_INF, SplitConfig, calc_leaf_output, \
     find_best_split
 
@@ -277,16 +277,16 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
             leaf_mv = _apply_splits(p_leaf, p_bins, leaf_lane, feat_sel,
                                     thr_sel, dl_sel, new_i32, feat_num_bin,
                                     feat_has_nan)
-            dest, n_front, cum = plan_split_move(leaf_mv != p_leaf)
-            part_off, part_cnt = update_tables(part_off, part_cnt, cum,
-                                               n_front, tl_safe, new_ids,
-                                               valid)
             nxt = 1 if cur == 0 else 0
             if bufs[nxt] is None:
                 bufs[nxt] = (torch.empty_like(p_bins),
                              torch.empty_like(p_vals),
                              torch.empty_like(p_leaf))
-            part = move_cols(p_bins, p_vals, leaf_mv, dest, out=bufs[nxt])
+            part, n_front, cum = partition_move(p_bins, p_vals, p_leaf,
+                                               leaf_mv, out=bufs[nxt])
+            part_off, part_cnt = update_tables(part_off, part_cnt, cum,
+                                               n_front, tl_safe, new_ids,
+                                               valid)
             cur = nxt
 
         # ---- smaller-child histogram + sibling subtraction -------------

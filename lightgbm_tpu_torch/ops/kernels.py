@@ -7,6 +7,9 @@ so a build takes seconds. Builds happen at first use, into
 by a hash of the source and the flags so an edited kernel is rebuilt.
 Nothing here runs at import time: the CPU-only test machine imports every
 module but never builds.
+
+The two stable-partition kernels (``compact.cu``, ``partition.cu``) also
+share a per-stream scratch buffer and launch epoch (``scan_scratch``).
 """
 from __future__ import annotations
 
@@ -17,7 +20,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
+
+import torch
 
 from ..utils import log
 
@@ -42,7 +47,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the headers (csrc/*.cuh) are part of every source's build
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC_DIR / f"{name}.cu",
+                    *sorted(CSRC_DIR.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{tag[:16]}.so"
 
@@ -102,3 +110,30 @@ def check(rc: int, what: str) -> None:
     """Raise if a kernel's C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+# The stable-partition kernels' scratch (tile counters and look-back status
+# words, csrc/stable_partition.cuh), one buffer per stream. Zeroed once when
+# allocated: every launch gets the next epoch, so the status words an
+# earlier launch left never read as valid, and each launch zeroes the
+# counters the next one uses. Calls on one stream run in order.
+_SCAN_SCRATCH: Dict[tuple, list] = {}
+EPOCH_LIMIT = 1 << 30                  # the epoch has 30 bits
+
+
+def scan_scratch(stream, nbytes: int) -> Tuple[torch.Tensor, int]:
+    """(scratch buffer, epoch) for the next stable-partition launch on
+    ``stream``; call ``scan_launched`` after a launch that succeeded."""
+    key = (stream.device, stream.cuda_stream)
+    ent = _SCAN_SCRATCH.get(key)
+    if ent is None or ent[0].numel() < nbytes or ent[1] + 1 >= EPOCH_LIMIT:
+        with torch.cuda.stream(stream):
+            buf = torch.zeros(max(nbytes, 1), dtype=torch.uint8,
+                              device=stream.device)
+        ent = _SCAN_SCRATCH[key] = [buf, 0]
+    return ent[0], ent[1] + 1
+
+
+def scan_launched(stream, epoch: int) -> None:
+    """Record that the launch with ``epoch`` went out on ``stream``."""
+    _SCAN_SCRATCH[(stream.device, stream.cuda_stream)][1] = epoch

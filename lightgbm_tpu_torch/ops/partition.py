@@ -10,20 +10,27 @@ The port of ``lightgbm_tpu/ops/partition.py``:
 - the histogram source (bins, values and a per-POSITION leaf id) is kept
   reordered so every leaf occupies one span, described by per-leaf
   ``(offset, count)`` tables;
-- after each split batch the rows that routed to a right child move
-  stably to the back and every other row stably to the front, in one
-  move: one int32 ``cumsum`` of the moved mask gives every destination
-  (``plan_split_move``), and the tables update from the same prefix sums
-  at the few leaf boundaries (``update_tables``);
+- after each split batch the rows whose leaf id changed (they routed to a
+  right child) move stably to the back and every other row stably to the
+  front, in one call: ``partition_move`` compares the old and new leaf
+  ids, moves the columns and returns the moved-prefix sums ``cum`` and
+  the front size, from which the tables update at the few leaf
+  boundaries (``update_tables``);
 - each round histograms only the elected children's spans, cut to a
   power-of-two budget from ``span_budgets`` by ``slice_spans``; positions
   of a neighbouring leaf inside a span get leaf id -1.
 
-``move_cols`` applies the move: for CUDA tensors it launches the
-hand-written kernel (``csrc/partition.cu``), one pass that scatters each
-column to its destination; for CPU tensors it runs ``move_rows_plain``.
-The reference's TPU form (``move_cols_tpu``) needs two compaction passes,
-a roll and a blend, and carries the leaf ids as an extra float32 channel
+For CUDA tensors ``partition_move`` is one launch of the hand-written
+kernel (``csrc/partition.cu`` on the stable-partition core of
+``csrc/stable_partition.cuh``), which computes the destinations itself;
+for CPU tensors it runs ``partition_move_plain``, the composition of the
+JAX package's plan (``plan_split_move``) and an indexed copy
+(``move_rows_plain``). It writes the full inclusive ``cum`` (4 B a
+column) rather than only the O(#leaves) prefixes the tables read: that
+keeps ``update_tables`` the JAX package's function, and those prefixes'
+positions would be one more list to build before every launch. The
+reference's TPU form (``move_cols_tpu``) needs two compaction passes, a
+roll and a blend, and carries the leaf ids as an extra float32 channel
 through its bf16x3 split; a GPU store to a computed address is exact, so
 here the int32 ids move as their own array.
 """
@@ -66,15 +73,15 @@ def plan_split_move(moved: torch.Tensor
 def prefix_at(cum: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """``# moved rows strictly before position pos`` for positions in
     ``[0, n]`` (a gather of O(#leaves) entries)."""
-    cum_p = torch.cat([torch.zeros(1, dtype=i32, device=cum.device), cum])
-    return cum_p[pos.clamp(0, cum.shape[0]).to(torch.int64)]
+    p = pos.clamp(0, cum.shape[0]).to(torch.int64)
+    return torch.where(p > 0, cum[(p - 1).clamp(min=0)], 0)
 
 
 def update_tables(off: torch.Tensor, cnt: torch.Tensor, cum: torch.Tensor,
                   n_front: torch.Tensor, parents: torch.Tensor,
                   new_ids: torch.Tensor, valid: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """New per-leaf (offset, count) tables after ``plan_split_move``.
+    """New per-leaf (offset, count) tables after a split batch's move.
 
     Every leaf that is not a right child (untouched leaves, and left
     children, which keep the parent's slot) shifts left by the moved rows
@@ -83,7 +90,8 @@ def update_tables(off: torch.Tensor, cnt: torch.Tensor, cum: torch.Tensor,
 
     Args:
       off / cnt: ``[L+1]`` int32 old tables (slot L = trash).
-      cum: inclusive moved-prefix from ``plan_split_move``.
+      cum / n_front: inclusive moved-prefix and front size, from
+        ``partition_move`` (or ``plan_split_move``).
       parents: ``[K]`` split leaf slots (trash slot for invalid lanes).
       new_ids: ``[K]`` right-child slots (trash slot for invalid lanes).
       valid: ``[K]`` bool lane validity.
@@ -104,8 +112,7 @@ def update_tables(off: torch.Tensor, cnt: torch.Tensor, cum: torch.Tensor,
 def move_rows_plain(bins_t: torch.Tensor, vals_t: torch.Tensor,
                     leaf: torch.Tensor, dest: torch.Tensor,
                     out: Optional[Arrays] = None) -> Arrays:
-    """Plain torch version of the kernel (same contract): an exact
-    computed-index scatter ``out[..., dest[r]] = in[..., r]``."""
+    """An exact computed-index scatter ``out[..., dest[r]] = in[..., r]``."""
     ob, ov, ol = out if out is not None else _empty_like(bins_t, vals_t,
                                                          leaf)
     d = dest.to(torch.int64)
@@ -115,81 +122,106 @@ def move_rows_plain(bins_t: torch.Tensor, vals_t: torch.Tensor,
     return ob, ov, ol
 
 
+def partition_move_plain(bins_t: torch.Tensor, vals_t: torch.Tensor,
+                         leaf_old: torch.Tensor, leaf_new: torch.Tensor,
+                         out: Optional[Arrays] = None
+                         ) -> Tuple[Arrays, torch.Tensor, torch.Tensor]:
+    """Plain torch version of the kernel (same contract):
+    ``plan_split_move(leaf_new != leaf_old)`` then ``move_rows_plain``."""
+    dest, n_front, cum = plan_split_move(leaf_new != leaf_old)
+    return move_rows_plain(bins_t, vals_t, leaf_new, dest, out), n_front, cum
+
+
 def _empty_like(bins_t, vals_t, leaf) -> Arrays:
     return (torch.empty_like(bins_t), torch.empty_like(vals_t),
             torch.empty_like(leaf))
 
 
-def _check_inputs(bins_t, vals_t, leaf, dest, out):
+def _check_inputs(bins_t, vals_t, leaf_old, leaf_new, out):
     if bins_t.dtype != torch.uint8 or bins_t.dim() != 2:
         raise ValueError(f"bins_t must be [F, n] uint8, got "
                          f"{tuple(bins_t.shape)} {bins_t.dtype}")
     n = bins_t.shape[1]
+    if n < 1:
+        raise ValueError("partition_move needs at least one column")
     if vals_t.dtype != torch.float32 or vals_t.dim() != 2 \
             or vals_t.shape[1] != n:
         raise ValueError(f"vals_t must be [C, {n}] float32, got "
                          f"{tuple(vals_t.shape)} {vals_t.dtype}")
-    for name, t in (("leaf", leaf), ("dest", dest)):
+    for name, t in (("leaf_old", leaf_old), ("leaf_new", leaf_new)):
         if t.dtype != i32 or tuple(t.shape) != (n,):
             raise ValueError(f"{name} must be [{n}] int32, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    tensors = [bins_t, vals_t, leaf, dest]
+    tensors = [bins_t, vals_t, leaf_old, leaf_new]
     if out is not None:
-        for src, o in zip((bins_t, vals_t, leaf), out):
+        for src, o in zip((bins_t, vals_t, leaf_new), out):
             if o.dtype != src.dtype or o.shape != src.shape:
                 raise ValueError(f"out buffer {tuple(o.shape)} {o.dtype} "
                                  f"does not match its input "
                                  f"{tuple(src.shape)} {src.dtype}")
             if o.data_ptr() == src.data_ptr():
-                raise ValueError("move_cols never works in place: pass a "
-                                 "second buffer")
+                raise ValueError("partition_move never works in place: "
+                                 "pass a second buffer")
         tensors += list(out)
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"inputs lie on different devices: {devs}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("move_cols inputs must be contiguous")
+        raise ValueError("partition_move inputs must be contiguous")
 
 
-def move_cols(bins_t: torch.Tensor, vals_t: torch.Tensor, leaf: torch.Tensor,
-              dest: torch.Tensor, out: Optional[Arrays] = None) -> Arrays:
-    """Apply the stable front/back permutation of one split batch.
+def partition_move(bins_t: torch.Tensor, vals_t: torch.Tensor,
+                   leaf_old: torch.Tensor, leaf_new: torch.Tensor,
+                   out: Optional[Arrays] = None
+                   ) -> Tuple[Arrays, torch.Tensor, torch.Tensor]:
+    """One split batch's stable front/back move of the partitioned source.
 
     Args:
       bins_t: ``[F, n]`` uint8 feature-major binned matrix.
       vals_t: ``[C, n]`` float32 channel-major values.
-      leaf: ``[n]`` int32 per-position leaf ids (after this round's
-        splits).
-      dest: ``[n]`` int32 permutation from ``plan_split_move``.
+      leaf_old: ``[n]`` int32 per-position leaf ids before this round's
+        splits; ``leaf_new`` after them. A position whose id changed
+        routed to a right child and moves to the back.
       out: optional ``(bins, vals, leaf)`` buffers of the same shapes to
         write into (never the inputs themselves); allocated if None.
 
     Returns:
-      ``(bins, vals, leaf)`` with column r of each input at column
-      ``dest[r]``, bit-exact. CUDA tensors launch the kernel
-      (``move_cols.launches`` counts the launches); CPU tensors take
-      ``move_rows_plain``.
+      ``((bins, vals, leaf), n_front, cum)``: the columns of bins, vals and
+      ``leaf_new``, not-moved ones in source order from column 0 and moved
+      ones in source order from ``n_front`` (an int32 device scalar), bit-
+      exact; ``cum`` the ``[n]`` int32 inclusive prefix counts of the moved
+      positions (``update_tables``' input). CUDA tensors launch the kernel
+      once and read nothing back (``partition_move.launches`` counts the
+      launches); CPU tensors take ``partition_move_plain``.
     """
-    _check_inputs(bins_t, vals_t, leaf, dest, out)
+    _check_inputs(bins_t, vals_t, leaf_old, leaf_new, out)
     dev = bins_t.device
     if dev.type == "cpu":
-        return move_rows_plain(bins_t, vals_t, leaf, dest, out)
+        return partition_move_plain(bins_t, vals_t, leaf_old, leaf_new, out)
     if dev.type != "cuda":
         raise ValueError(f"no partition-move kernel for device {dev}")
     ob, ov, ol = out if out is not None else _empty_like(bins_t, vals_t,
-                                                         leaf)
+                                                         leaf_new)
     F, n = bins_t.shape
     C = vals_t.shape[0]
-    rc = _lib().lgbt_partition_move(
-        bins_t.data_ptr(), vals_t.data_ptr(), leaf.data_ptr(),
-        dest.data_ptr(), n, F, C, ob.data_ptr(), ov.data_ptr(),
-        ol.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    kernels.check(rc, "move_cols")
-    move_cols.launches += 1
-    return ob, ov, ol
+    cum = torch.empty(n, dtype=i32, device=dev)
+    n_front = torch.empty((), dtype=i32, device=dev)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev)
+    scratch, epoch = kernels.scan_scratch(
+        stream, lib.lgbt_partition_scratch_bytes(n))
+    rc = lib.lgbt_partition_move(
+        bins_t.data_ptr(), vals_t.data_ptr(), leaf_old.data_ptr(),
+        leaf_new.data_ptr(), n, F, C, ob.data_ptr(), ov.data_ptr(),
+        ol.data_ptr(), cum.data_ptr(), n_front.data_ptr(),
+        scratch.data_ptr(), epoch, stream.cuda_stream)
+    kernels.check(rc, "partition_move")
+    kernels.scan_launched(stream, epoch)
+    partition_move.launches += 1
+    return (ob, ov, ol), n_front, cum
 
 
-move_cols.launches = 0
+partition_move.launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -197,8 +229,12 @@ def _lib() -> ctypes.CDLL:
     fn = lib.lgbt_partition_move
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * 4)
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_uint]
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        q = lib.lgbt_partition_scratch_bytes
+        q.argtypes = [ctypes.c_int]
+        q.restype = ctypes.c_longlong
     return lib
 
 

@@ -1,9 +1,11 @@
-"""Port parity: row compaction (kernel B's contract) and its plan.
+"""Port parity: row compaction (kernel B's contract) and the JAX plan.
 
-``plan_compaction`` and the compaction output must be bit-equal to the
-JAX reference as its CPU tests run it (``plan_compaction`` +
-``compact_rows_xla``), at several keep fractions including the edges.
-The CUDA kernel is compared with the plain version on the card
+``plan_compaction`` and the one-call compaction ``compact_by_mask`` must be
+bit-equal to the JAX reference as its CPU tests run it
+(``plan_compaction`` + ``compact_rows_xla``), at several keep fractions
+including the edges, and where more rows are kept than the buffer holds
+(the plan's clamp engages and columns past ``out_cols`` are dropped). The
+CUDA kernel is compared with the plain version on the card
 (tests/test_torch_cuda.py and chip_smoke.py).
 """
 import jax.numpy as jnp
@@ -43,9 +45,11 @@ def test_plan_and_compaction_bit_equal(n, F, C, frac, R):
         jnp.asarray(bins_t.view(np.int8)), jnp.asarray(vals_t),
         *[jnp.asarray(a) for a in jplan], out_cols=out_cols,
         rows_per_block=R)
-    tb, tv = tc.compact_rows(torch.from_numpy(bins_t),
-                             torch.from_numpy(vals_t), *tplan,
-                             out_cols=out_cols, rows_per_block=R)
+    before = tc.compact_by_mask.launches
+    tb, tv = tc.compact_by_mask(torch.from_numpy(bins_t),
+                                torch.from_numpy(vals_t),
+                                torch.from_numpy(mask), out_cols)
+    assert tc.compact_by_mask.launches == before      # CPU: no kernel
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb).view(np.uint8))
     np.testing.assert_array_equal(tv.numpy().view(np.uint32),
                                   np.asarray(jv).view(np.uint32))
@@ -54,15 +58,42 @@ def test_plan_and_compaction_bit_equal(n, F, C, frac, R):
     assert not tb.numpy()[:, k:].any() and not tv.numpy()[:, k:].any()
 
 
+def test_clamp_drops_columns_past_out_cols():
+    """More rows kept than ``out_cols - R - 128``: the JAX plan clamps its
+    block write positions, its positions stay exact and those at or past
+    ``out_cols`` are dropped; the one-call form drops the same columns."""
+    n, F, C, R = 8192, 6, 3, 1024
+    bins_t, vals_t, mask = _mk(n, F, C, 0.6, seed=11)
+    k = int(mask.sum())
+    out_cols = 4096
+    assert k > out_cols > k - R - 128 and (out_cols - R - 128) < k
+    jplan = jc.plan_compaction(jnp.asarray(mask), R, out_cols)
+    tplan = tc.plan_compaction(torch.from_numpy(mask), R, out_cols)
+    for a, b in zip(jplan, tplan):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    stream = np.concatenate([[0], np.cumsum(mask.reshape(-1, R).sum(1))])
+    assert (np.asarray(jplan[1]) * 128 < stream[:-1]).any()   # clamped
+    jb, jv = jc.compact_rows_xla(
+        jnp.asarray(bins_t.view(np.int8)), jnp.asarray(vals_t), *jplan,
+        out_cols=out_cols, rows_per_block=R)
+    tb, tv = tc.compact_by_mask(torch.from_numpy(bins_t),
+                                torch.from_numpy(vals_t),
+                                torch.from_numpy(mask), out_cols)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb).view(np.uint8))
+    np.testing.assert_array_equal(tv.numpy().view(np.uint32),
+                                  np.asarray(jv).view(np.uint32))
+    np.testing.assert_array_equal(tb.numpy(), bins_t[:, mask][:, :out_cols])
+
+
 def test_wrapper_rejects_bad_inputs():
     bins = torch.zeros((2, 1024), dtype=torch.uint8)
     vals = torch.zeros((3, 1024), dtype=torch.float32)
-    plan = tc.plan_compaction(torch.ones(1024, dtype=torch.bool), 256, 2048)
+    keep = torch.ones(1024, dtype=torch.bool)
     with pytest.raises(ValueError):
-        tc.compact_rows(bins.to(torch.int8), vals, *plan, out_cols=2048,
-                        rows_per_block=256)
+        tc.compact_by_mask(bins.to(torch.int8), vals, keep, 2048)
     with pytest.raises(ValueError):
-        tc.compact_rows(bins, vals, *plan, out_cols=2048, rows_per_block=512)
+        tc.compact_by_mask(bins, vals, keep.to(torch.int32), 2048)
     with pytest.raises(ValueError):
-        tc.compact_rows(bins, vals[:, :512], *plan, out_cols=2048,
-                        rows_per_block=256)
+        tc.compact_by_mask(bins, vals[:, :512], keep, 2048)
+    with pytest.raises(ValueError):
+        tc.compact_by_mask(bins, vals, keep, 0)

@@ -180,14 +180,12 @@ def test_compaction_kernel_matches_plain(cuda_device, n, F, C, frac, R):
     vals_t = torch.from_numpy(rng.normal(size=(C, n)).astype(np.float32))
     mask = torch.from_numpy(rng.uniform(size=n) < frac)
     out_cols = tc.compaction_out_cols(int(mask.sum()), R, 4096)
-    plan = tc.plan_compaction(mask, R, out_cols)
-    args = [bins_t, vals_t, *plan]
-    pb, pv = tc.compact_rows_plain(*args, out_cols=out_cols,
-                                   rows_per_block=R)
-    before = tc.compact_rows.launches
-    kb, kv = tc.compact_rows(*[a.to(cuda_device) for a in args],
-                             out_cols=out_cols, rows_per_block=R)
-    assert tc.compact_rows.launches == before + 1
+    args = [bins_t, vals_t, mask]
+    pb, pv = tc.compact_by_mask_plain(*args, out_cols)
+    before = tc.compact_by_mask.launches
+    kb, kv = tc.compact_by_mask(*[a.to(cuda_device) for a in args],
+                                out_cols)
+    assert tc.compact_by_mask.launches == before + 1
     assert torch.equal(kb.cpu(), pb)
     assert torch.equal(kv.cpu().view(torch.int32), pv.view(torch.int32))
 
@@ -225,25 +223,162 @@ def test_wrappers_launch_only_on_cuda_tensors(cuda_device):
     (65_536, 28, 3, 0.5), (65_536, 28, 3, 0.001), (4099, 5, 3, 0.3),
     (8191, 28, 3, 0.0), (8191, 28, 3, 1.0), (1000, 2, 1, 0.7)])
 def test_partition_move_matches_plain(cuda_device, n, F, C, frac):
-    """Bit-equal to the plain scatter, for odd n and for a moved fraction
-    of 0 and of 1; the kernel writes into a given second buffer."""
-    rng = np.random.default_rng(n + F)
-    bins_t = torch.from_numpy(rng.integers(0, 256, size=(F, n))
-                              .astype(np.uint8))
-    vals_t = torch.from_numpy(rng.normal(size=(C, n)).astype(np.float32))
-    leaf = torch.from_numpy(rng.integers(0, 127, size=n).astype(np.int32))
-    dest, _, _ = tp.plan_split_move(torch.from_numpy(rng.uniform(size=n)
-                                                     < frac))
-    args = [bins_t, vals_t, leaf, dest]
-    pb, pv, pl = tp.move_rows_plain(*args)
+    """Bit-equal to the plain version (moved columns, cum and n_front),
+    for odd n and for a moved fraction of 0 and of 1; the kernel writes
+    into a given second buffer."""
+    args = _move_case(n, F, C, frac, seed=n + F)
+    pmove, pnf, pcum = tp.partition_move_plain(*args)
     cargs = [a.to(cuda_device) for a in args]
-    out = tuple(torch.full_like(a, 7) for a in cargs[:3])
-    before = tp.move_cols.launches
-    kb, kv, kl = tp.move_cols(*cargs, out=out)
-    assert tp.move_cols.launches == before + 1
-    assert kb is out[0] and kv is out[1] and kl is out[2]
-    assert torch.equal(kb.cpu(), pb) and torch.equal(kl.cpu(), pl)
-    assert torch.equal(kv.cpu().view(torch.int32), pv.view(torch.int32))
+    out = tuple(torch.full_like(a, 7) for a in (cargs[0], cargs[1],
+                                                cargs[3]))
+    before = tp.partition_move.launches
+    kmove, knf, kcum = tp.partition_move(*cargs, out=out)
+    assert tp.partition_move.launches == before + 1
+    assert all(k is o for k, o in zip(kmove, out))
+    _assert_move_equal((kmove, knf, kcum), (pmove, pnf, pcum))
+
+
+# ---- the stable-partition kernels (partition move B', compaction B) -----
+TILE = 4096               # columns per tile (csrc/stable_partition.cuh)
+
+
+def _move_case(n, F, C, frac, seed):
+    """bins, values, old and new leaf ids: a fraction ``frac`` of the
+    positions changes its id."""
+    rng = np.random.default_rng(seed)
+    bins_t = rng.integers(0, 256, size=(F, n)).astype(np.uint8)
+    vals_t = rng.normal(size=(C, n)).astype(np.float32)
+    old = rng.integers(0, 127, size=n).astype(np.int32)
+    new = np.where(rng.uniform(size=n) < frac, old + 127, old)
+    return [torch.from_numpy(a) for a in (bins_t, vals_t, old,
+                                          new.astype(np.int32))]
+
+
+def _assert_move_equal(got, want):
+    (kb, kv, kl), knf, kcum = got
+    (pb, pv, pl), pnf, pcum = want
+    assert torch.equal(kb.cpu(), pb.cpu()) and torch.equal(kl.cpu(),
+                                                           pl.cpu())
+    assert torch.equal(kv.cpu().view(torch.int32), pv.cpu().view(torch.int32))
+    assert torch.equal(kcum.cpu(), pcum.cpu())
+    assert knf.shape == () and int(knf) == int(pnf)
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.001, 0.5, 1.0])
+@pytest.mark.parametrize("n", [1, TILE - 1, TILE, TILE + 1, 2_002_944,
+                               (1 << 22) + 3])
+def test_stable_partition_sizes(cuda_device, n, frac):
+    """Both kernels at tile edges, the 2M-row run's padded width and past
+    2^22 columns (n % 16 != 0: rows off 16-byte alignment take the
+    scalar loads), bit-equal to their plain versions on the card."""
+    F, C = 28, 3
+    args = [a.to(cuda_device) for a in _move_case(n, F, C, frac, seed=n)]
+    _assert_move_equal(tp.partition_move(*args),
+                       tp.partition_move_plain(*args))
+    keep = args[3] != args[2]
+    vals4 = torch.cat([args[1], args[1][:1]])
+    for out_cols in (n, max(1, int(keep.sum()) // 2)):
+        kb, kv = tc.compact_by_mask(args[0], vals4, keep, out_cols)
+        pb, pv = tc.compact_by_mask_plain(args[0], vals4, keep, out_cols)
+        assert torch.equal(kb, pb)
+        assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+
+
+@pytest.mark.parametrize("F", [1, 28])
+@pytest.mark.parametrize("C", [1, 3, 4, 8])
+def test_stable_partition_widths(cuda_device, F, C):
+    """One and 28 feature rows (a stage holds up to four), 1-8 value
+    rows, two tiles and a part."""
+    n = 2 * TILE + 777
+    args = [a.to(cuda_device) for a in _move_case(n, F, C, 0.5, seed=F + C)]
+    _assert_move_equal(tp.partition_move(*args),
+                       tp.partition_move_plain(*args))
+    keep = args[3] == args[2]
+    out_cols = int(keep.sum()) + 300
+    kb, kv = tc.compact_by_mask(args[0], args[1], keep, out_cols)
+    pb, pv = tc.compact_by_mask_plain(args[0], args[1], keep, out_cols)
+    assert torch.equal(kb, pb)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+
+
+def test_stable_partition_launches_in_a_row(cuda_device):
+    """Three launches of each kernel on one stream with no host sync in
+    between, each with other flags: every launch reads only its own
+    epoch's status words and counters."""
+    n, F, C = 5 * TILE + 123, 28, 3
+    cases = [[a.to(cuda_device) for a in _move_case(n, F, C, frac, seed=i)]
+             for i, frac in enumerate((0.5, 0.001, 1.0))]
+    torch.cuda.synchronize()
+    got = [tp.partition_move(*c) for c in cases]
+    kept = [tc.compact_by_mask(c[0], c[1], c[3] == c[2], n) for c in cases]
+    torch.cuda.synchronize()
+    for c, g, k in zip(cases, got, kept):
+        _assert_move_equal(g, tp.partition_move_plain(*c))
+        pb, pv = tc.compact_by_mask_plain(c[0], c[1], c[3] == c[2], n)
+        assert torch.equal(k[0], pb)
+        assert torch.equal(k[1].view(torch.int32), pv.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["more_than_out_cols", "all", "none"])
+def test_compaction_kept_counts(cuda_device, case):
+    """Kept columns past out_cols are dropped; everything kept; nothing
+    kept (the whole output is the zero tail). uint8 and bool masks."""
+    n, F, C = 3 * TILE + 5, 28, 4
+    rng = np.random.default_rng(len(case))
+    bins_t = torch.from_numpy(rng.integers(0, 256, size=(F, n))
+                              .astype(np.uint8)).to(cuda_device)
+    vals_t = torch.from_numpy(rng.normal(size=(C, n)).astype(np.float32)) \
+        .to(cuda_device)
+    if case == "more_than_out_cols":
+        keep = torch.from_numpy(rng.uniform(size=n) < 0.9)
+        out_cols = TILE + 17
+    else:
+        keep = torch.full((n,), case == "all")
+        out_cols = n + 100
+    keep = keep.to(cuda_device)
+    for mask in (keep, keep.to(torch.uint8)):
+        kb, kv = tc.compact_by_mask(bins_t, vals_t, mask, out_cols)
+        pb, pv = tc.compact_by_mask_plain(bins_t, vals_t, mask, out_cols)
+        assert torch.equal(kb, pb)
+        assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+    if case == "none":
+        assert not kb.any() and not kv.any()
+
+
+def test_stable_partition_misaligned_rows(cuda_device):
+    """Contiguous inputs and outputs that start off a 16-byte boundary:
+    the rows take the scalar loads and the runs' chunks shift."""
+    n, F, C = 2 * TILE + 64, 5, 3
+    args = [a.to(cuda_device) for a in _move_case(n, F, C, 0.4, seed=3)]
+    buf = torch.zeros(C * n + 1, device=cuda_device)
+    shifted = buf[1:].view(C, n)
+    shifted.copy_(args[1])
+    args[1] = shifted
+    obuf = torch.zeros(C * n + 1, device=cuda_device)
+    out = (torch.empty_like(args[0]), obuf[1:].view(C, n),
+           torch.empty_like(args[3]))
+    _assert_move_equal(tp.partition_move(*args, out=out),
+                       tp.partition_move_plain(*args))
+    keep = args[3] != args[2]
+    kb, kv = tc.compact_by_mask(args[0], shifted, keep, n - 1)
+    pb, pv = tc.compact_by_mask_plain(args[0], shifted, keep, n - 1)
+    assert torch.equal(kb, pb)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+
+
+def test_stable_partition_wrappers_launch_only_on_cuda(cuda_device):
+    args = _move_case(3000, 4, 3, 0.5, seed=0)
+    keep = args[3] != args[2]
+    b0, c0 = tp.partition_move.launches, tc.compact_by_mask.launches
+    tp.partition_move(*args)
+    tc.compact_by_mask(args[0], args[1], keep, 3000)
+    assert (tp.partition_move.launches, tc.compact_by_mask.launches) == \
+        (b0, c0)
+    cargs = [a.to(cuda_device) for a in args]
+    tp.partition_move(*cargs)
+    tc.compact_by_mask(cargs[0], cargs[1], keep.to(cuda_device), 3000)
+    assert (tp.partition_move.launches, tc.compact_by_mask.launches) == \
+        (b0 + 1, c0 + 1)
 
 
 @pytest.mark.parametrize("probe", ["1d", "nibble16", "nibble32",

@@ -4,8 +4,10 @@ The port's ``ops/partition.py`` against the JAX package's on the same
 seeded inputs: the move plan and table updates bit-equal over several
 random split batches (with the layout invariants of
 tests/test_partition.py), the span ladder and span slicing equal, the
-move itself equal to ``move_rows_xla``. Then ``grow_tree(partition=True)``
-of both packages bit-equal (tree arrays, leaf ids, ``hist_rows``) under
+one-call move ``partition_move`` equal to the JAX plan plus
+``move_rows_xla`` (its prefix output feeding the JAX tables). Then
+``grow_tree(partition=True)`` of both packages bit-equal (tree arrays,
+leaf ids, ``hist_rows``) under
 power-of-two channel scales, and the port's engine writing byte-equal
 model text with the partition on and off under quantized gradients.
 """
@@ -125,32 +127,60 @@ def test_slice_spans_equal(budget):
 
 @pytest.mark.parametrize("frac", [0.0, 0.3, 1.0])
 def test_move_cols_cpu_equals_move_rows_xla(frac):
+    """``partition_move`` on the CPU: the columns moved as the JAX plan
+    (``plan_split_move(leaf_new != leaf_old)``) and ``move_rows_xla``
+    move them, ``n_front`` and ``cum`` equal, and the tables updated from
+    its prefix output equal the JAX ``update_tables``."""
     rng = np.random.default_rng(int(frac * 10))
-    n, F, C = 1001, 5, 3
+    n, F, C, L = 1001, 5, 3, 31
     bins = rng.integers(0, 256, size=(F, n)).astype(np.uint8)
     vals = rng.normal(size=(C, n)).astype(np.float32)
-    leaf = rng.integers(0, 31, size=n).astype(np.int32)
+    # three leaves in spans; every row of a moved leaf's right part changes
+    # its id (the shape of one split batch)
+    old = np.repeat(np.asarray([0, 1, 2], np.int32), [400, 351, 250])
+    new = old.copy()
     moved = rng.random(n) < frac
-    dest, _, _ = part.plan_split_move(_t(moved))
-    before = part.move_cols.launches
-    ob, ov, ol = part.move_cols(_t(bins), _t(vals), _t(leaf), dest)
-    assert part.move_cols.launches == before      # CPU: no kernel
-    d = jnp.asarray(dest.numpy())
+    new[moved & (old == 0)] = 3
+    new[moved & (old == 2)] = 4
+    moved = new != old
+    before = part.partition_move.launches
+    (ob, ov, ol), nf, cum = part.partition_move(_t(bins), _t(vals), _t(old),
+                                                _t(new))
+    assert part.partition_move.launches == before      # CPU: no kernel
+    d, nf_j, cum_j = jax_part.plan_split_move(jnp.asarray(moved))
     jb, jv = jax_part.move_rows_xla([jnp.asarray(bins), jnp.asarray(vals)],
                                     d, axis=1)
-    [jl] = jax_part.move_rows_xla([jnp.asarray(leaf)], d)
+    [jl] = jax_part.move_rows_xla([jnp.asarray(new)], d)
     np.testing.assert_array_equal(ob.numpy(), np.asarray(jb))
     np.testing.assert_array_equal(ov.numpy().view(np.int32),
                                   np.asarray(jv).view(np.int32))
     np.testing.assert_array_equal(ol.numpy(), np.asarray(jl))
+    assert nf.dtype == torch.int32 and cum.dtype == torch.int32
+    assert int(nf) == int(nf_j) == int((~moved).sum())
+    np.testing.assert_array_equal(cum.numpy(), np.asarray(cum_j))
+    off = np.zeros(L + 1, np.int32)
+    cnt = np.zeros(L + 1, np.int32)
+    off[:3], cnt[:3] = [0, 400, 751], [400, 351, 250]
+    parents = np.asarray([0, 2, L, L], np.int32)
+    new_ids = np.asarray([3, 4, L, L], np.int32)
+    valid = np.asarray([True, True, False, False])
+    off_t, cnt_t = part.update_tables(_t(off), _t(cnt), cum, nf,
+                                      _t(parents).long(), _t(new_ids).long(),
+                                      _t(valid))
+    off_j, cnt_j = jax_part.update_tables(
+        jnp.asarray(off), jnp.asarray(cnt), cum_j, nf_j,
+        jnp.asarray(parents), jnp.asarray(new_ids), jnp.asarray(valid))
+    np.testing.assert_array_equal(off_t.numpy(), np.asarray(off_j))
+    np.testing.assert_array_equal(cnt_t.numpy(), np.asarray(cnt_j))
     # into a given buffer; never in place
     bufs = tuple(torch.empty_like(t) for t in (ob, ov, ol))
-    again = part.move_cols(_t(bins), _t(vals), _t(leaf), dest, out=bufs)
+    again, _, _ = part.partition_move(_t(bins), _t(vals), _t(old), _t(new),
+                                      out=bufs)
     assert all(a is b for a, b in zip(again, bufs))
     src = _t(bins)
     with pytest.raises(ValueError, match="in place"):
-        part.move_cols(src, _t(vals), _t(leaf), dest,
-                       out=(src, bufs[1], bufs[2]))
+        part.partition_move(src, _t(vals), _t(old), _t(new),
+                            out=(src, bufs[1], bufs[2]))
 
 
 # ---- grow_tree -------------------------------------------------------------
