@@ -17,12 +17,17 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
    (columns, prefix sums and front size), timed; B and B′ are timed in
    turns with the parent's whole main-path step (plan, zero-fills and
    dest-driven kernel), built from ``build/move_parent/`` when present;
-3. the two histogram probe kernels at their probe shapes (the 1-D probe,
-   and the nibble probe at nb = 16, 32, 64) within the f32 tolerance of
-   the plain version and bit-equal to it on exact-sum inputs, timed
-   beside kernel A in f32 mode; the nibble probe's cluster plan is
-   printed per nb, and a nibble-probe source under ``build/hist_extra/``
-   (an earlier ``hist_probes.cu``) is timed beside it in turns;
+3. the two histogram probe kernels at their probe shapes (the 1-D probe
+   at the TPU probe's shape, every row in lane 0, and with ids uniform
+   over 32 lanes; the nibble probe at nb = 16, 32, 64) within the f32
+   tolerance of the plain version and bit-equal to it on exact-sum
+   inputs, timed beside kernel A in f32 mode; the 1-D probe's passes
+   and the nibble probe's cluster plan are printed; sources under
+   ``build/hist_extra/`` are timed beside them in turns: a nibble-probe
+   source (an earlier ``hist_probes.cu``) beside the nibble probe, and a
+   ``probe1d_*.cu`` (the parent's ``hist_probes.cu``, the other design
+   of the adds, stripped copies) beside the 1-D probe, with the split of
+   its time that the stripped copies give;
 4. the Higgs flagship (1M rows x 28 features, binary, 127 leaves, 255
    bins, GOSS with the compacted histogram buffer, quantized gradients)
    for 16 rounds through ``Booster.update``: holdout AUC and a model-text
@@ -53,7 +58,8 @@ and reads them just after. The last two lines of standard output are the
 per-kernel JSON line and the result line ``{"ok": true, "device":
 {...}}``; any failure exits non-zero before the result line.
 ``--json-out PATH`` also writes the per-kernel record, replay included,
-to PATH. It needs a CUDA device and imports neither JAX nor
+to PATH; ``--only-probes`` builds the kernels, runs phase 3 and stops
+(no result line). It needs a CUDA device and imports neither JAX nor
 ``lightgbm_tpu``.
 """
 import json
@@ -118,10 +124,22 @@ FULL_PARAMS = {"objective": "binary", "num_leaves": 127, "max_bin": 255,
                "feature_fraction": 0.8, "tpu_leaf_batch": 32,
                "tpu_hist_mode": "pool", "metric": "auc", "verbosity": -1,
                "device_type": "cuda"}
-# the probes' shapes (benchmarks/kernel_probe.py:7-12 and
-# benchmarks/nibble_probe.py:25-31): F, n, B, K, C
-PROBE_SHAPES = {"hist_probe_1d": (28, 1_048_576, 256, 16, 3),
-                "hist_probe_nibble": (28, 1_048_576, 256, 32, 3)}
+# the probes' shapes (benchmarks/kernel_probe.py:7-12, every row in lane
+# 0, and benchmarks/nibble_probe.py:25-31, ids uniform over the lanes),
+# the 1-D probe also at the nibble probe's: probe, F, n, B, K, C, leaf ids
+PROBE_SHAPES = {
+    "hist_probe_1d": ("hist_probe_1d", 28, 1_048_576, 256, 16, 3, "lane0"),
+    "hist_probe_1d_uniform": ("hist_probe_1d", 28, 1_048_576, 256, 32, 3,
+                              "uniform"),
+    "hist_probe_nibble": ("hist_probe_nibble", 28, 1_048_576, 256, 32, 3,
+                          "uniform")}
+# 1-D probe sources under HIST_EXTRA_DIR: files named PROBE_1D_EXTRA*.cu
+PROBE_1D_EXTRA = "probe1d_"
+# the stripped copies of the 1-D probe whose times split the kernel's:
+# without the adds, without the reduction, without both
+# (chip_variants.py --probe-extras writes them)
+PROBE_1D_SPLIT = ("probe1d_no_adds", "probe1d_no_reduce",
+                  "probe1d_no_adds_no_reduce")
 
 
 def synth_higgs(n, f, seed=0):
@@ -407,10 +425,12 @@ class HistRecorder:
 def start_extra_builds(kernels):
     """Start one ``nvcc`` for each source under ``build/hist_extra/``: an
     earlier ``histogram.cu`` or a variant of it (C entry
-    ``lgbt_multi_leaf_histogram``, a zeroed output), or an earlier
+    ``lgbt_multi_leaf_histogram``, a zeroed output), an earlier
     ``hist_probes.cu`` or a variant of it (C entry
-    ``lgbt_hist_probe_nibble``, a zeroed output). The directory is
-    git-ignored and usually absent. Returns {name: (process, .so)}."""
+    ``lgbt_hist_probe_nibble``, a zeroed output), or, named
+    ``probe1d_*.cu``, a ``hist_probes.cu`` whose ``lgbt_hist_probe_1d``
+    is timed beside the 1-D probe. The directory is git-ignored and
+    usually absent. Returns {name: (process, .so)}."""
     root = os.path.dirname(os.path.abspath(__file__))
     src_dir = os.path.join(root, HIST_EXTRA_DIR)
     if not os.path.isdir(src_dir):
@@ -430,9 +450,10 @@ def start_extra_builds(kernels):
 
 def finish_extra_builds(jobs):
     """Wait for ``start_extra_builds``; returns ({name: histogram C
-    entry}, {name: nibble-probe C entry}, {name: .so path})."""
+    entry}, {name: nibble-probe C entry}, {name: 1-D probe call}, {name:
+    .so path})."""
     import ctypes
-    hists, nibbles, paths = {}, {}, {}
+    hists, nibbles, probes, paths = {}, {}, {}, {}
     for name, (proc, so) in jobs.items():
         text, _ = proc.communicate()
         if proc.returncode != 0:
@@ -440,6 +461,9 @@ def finish_extra_builds(jobs):
                                f":\n{text}")
         lib = ctypes.CDLL(so)
         paths[name] = so
+        if name.startswith(PROBE_1D_EXTRA):
+            probes[name] = extra_probe_1d(lib)
+            continue
         nibble = hasattr(lib, "lgbt_hist_probe_nibble")
         fn = (lib.lgbt_hist_probe_nibble if nibble
               else lib.lgbt_multi_leaf_histogram)
@@ -447,7 +471,7 @@ def finish_extra_builds(jobs):
                        + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         (nibbles if nibble else hists)[name] = fn
-    return hists, nibbles, paths
+    return hists, nibbles, probes, paths
 
 
 def extra_histogram(fn, bins, vals, leaf, ids, num_bins, int_mode):
@@ -479,6 +503,45 @@ def extra_nibble(fn, bins, vals, leaf, ids, num_bins, nb):
     if rc != 0:
         raise RuntimeError(f"extra nibble probe kernel: CUDA error {rc}")
     return out
+
+
+def extra_probe_1d(lib):
+    """A call of an extra 1-D probe library ``f(bins, vals, leaf, ids,
+    num_bins)``, wrapped as its own wrapper did: where the library has
+    ``lgbt_hist_probe_1d_scratch`` (this design), an output that the
+    kernel writes whole and a cached scratch; else (the parent) a zeroed
+    output the kernel adds into."""
+    import ctypes
+    from lightgbm_tpu_torch.ops.histogram import _scratch
+    fn = lib.lgbt_hist_probe_1d
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    new = hasattr(lib, "lgbt_hist_probe_1d_scratch")
+    fn.argtypes = [ptr] * 4 + [i32] * 5 + [ptr] * (3 if new else 2)
+    fn.restype = i32
+    if new:
+        lib.lgbt_hist_probe_1d_scratch.argtypes = [ptr] * 3 + [i32] * 5
+        lib.lgbt_hist_probe_1d_scratch.restype = ctypes.c_longlong
+
+    def call(bins, vals, leaf, ids, num_bins):
+        F, n = bins.shape
+        C, K = vals.shape[0], ids.shape[0]
+        shape = (K, F, num_bins, C)
+        ptrs = (bins.data_ptr(), vals.data_ptr(), leaf.data_ptr())
+        stream = torch.cuda.current_stream()
+        if new:
+            out = torch.empty(shape, device=bins.device)
+            scratch = _scratch(stream, lib.lgbt_hist_probe_1d_scratch(
+                *ptrs, n, F, C, K, num_bins))
+            rc = fn(*ptrs, ids.data_ptr(), n, F, C, K, num_bins,
+                    scratch.data_ptr(), out.data_ptr(), stream.cuda_stream)
+        else:
+            out = torch.zeros(shape, device=bins.device)
+            rc = fn(*ptrs, ids.data_ptr(), n, F, C, K, num_bins,
+                    out.data_ptr(), stream.cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"extra 1-D probe kernel: CUDA error {rc}")
+        return out
+    return call
 
 
 def sass_summary(lib_path, kernels):
@@ -853,27 +916,30 @@ def partition_phase(dev, tp, n, parent):
     return res
 
 
-def probe_phase(dev, hp, th, nibble_extras, nibble_usage):
+def probe_phase(dev, hp, th, nibble_extras, nibble_usage, probe_extras):
     """The two probe kernels at their probe shapes, each held against the
     plain version (within the f32 tolerance, and bit for bit on exact-sum
-    inputs) and timed beside kernel A in f32 mode. The nibble probe is
-    also timed in turns (kernel, extras, extras, kernel) with every
-    nibble-probe source under ``build/hist_extra/`` (an earlier
-    ``hist_probes.cu`` or a stripped copy: timed, not checked) at each
-    nb, and its launch plan and registers (``nibble_usage``) are printed
-    per nb. The probes are on no training path: their launches count this
-    phase's checked calls (two per shape, and per nb for the nibble
-    probe)."""
-    hp.hist_probe_1d.launches = hp.hist_probe_nibble.launches = 0
+    inputs) and timed beside kernel A in f32 mode. The 1-D probe is timed
+    in turns with kernel A and every ``probe1d_*`` source under
+    ``build/hist_extra/`` (the parent's ``hist_probes.cu``, the other
+    design of the adds, stripped copies: timed, not checked), as device
+    time and per call (``in_turns``); its passes are printed, and the
+    split of its time that the stripped copies give (PROBE_1D_SPLIT).
+    The nibble probe is timed in turns (kernel, extras, extras, kernel)
+    with every nibble-probe source there (an earlier ``hist_probes.cu``
+    or a stripped copy) at each nb, and its launch plan and registers
+    (``nibble_usage``) are printed per nb. The probes are on no training
+    path: their launches count this phase's checked calls (two per shape,
+    and per nb for the nibble probe)."""
     res, launches = {}, {}
-    for name, (F, n, B, K, C) in PROBE_SHAPES.items():
+    for label, (name, F, n, B, K, C, leaves) in PROBE_SHAPES.items():
         rng = np.random.default_rng(4)
         bins = torch.from_numpy(rng.integers(0, 255, size=(F, n))
                                 .astype(np.uint8)).to(dev)
         vals = torch.from_numpy(rng.normal(size=(C, n)).astype(np.float32)) \
             .to(dev)
         exact = exact_f32_vals(rng, C, n).to(dev)
-        if name == "hist_probe_1d":
+        if leaves == "lane0":
             leaf = torch.zeros(n, dtype=torch.int32, device=dev)
         else:
             leaf = torch.from_numpy(rng.integers(0, K, size=n)
@@ -889,20 +955,19 @@ def probe_phase(dev, hp, th, nibble_extras, nibble_usage):
         variants["kernel_a"] = lambda v: th.multi_leaf_histogram(
             bins, v, leaf, ids, num_bins=B)
         r = {tag: {} for tag in variants}
+        before = getattr(hp, name).launches
         for v, is_exact in ((vals, False), (exact, True)):
             ref = th.multi_leaf_histogram_plain(bins, v, leaf, ids,
                                                 num_bins=B)
             for tag, fn in variants.items():
                 got = fn(v)
                 torch.cuda.synchronize()
-                err = check_f32(f"{name} {tag}", got, ref, v, is_exact)
+                err = check_f32(f"{label} {tag}", got, ref, v, is_exact)
                 if not is_exact:
                     r[tag]["max_abs_err"] = err
-        launches[name] = getattr(hp, name).launches   # the checked calls
-        for tag, fn in variants.items():
-            if name == "hist_probe_nibble" and tag != "kernel_a":
-                continue                   # timed in turns below
-            r[tag]["ms"] = time_ms(lambda: fn(vals))
+        # the checked calls of every shape of the probe
+        launches[name] = (launches.get(name, 0)
+                          + getattr(hp, name).launches - before)
         plain_ms = time_ms(lambda: th.multi_leaf_histogram_plain(
             bins, vals, leaf, ids, num_bins=B), reps=3, warmup=1)
         # library yardstick: one index_add_ into the flat [K*F*B*C]
@@ -914,7 +979,46 @@ def probe_phase(dev, hp, th, nibble_extras, nibble_usage):
         del idx, src
         nbytes = 4 * n + (F + 4 * C) * m + 4 * K * F * B * C
         b_ms, b_by = bound(nbytes, pairs * F * C)
-        if name == "hist_probe_nibble":
+        if name == "hist_probe_1d":
+            fns = {"kernel": variants["probe"],
+                   "kernel_a": variants["kernel_a"]}
+            fns.update({x: (lambda v, fn=fn: fn(bins, v, leaf, ids, B))
+                        for x, fn in probe_extras.items()})
+            ms, call_ms, turns = in_turns({x: (lambda fn=fn: fn(vals))
+                                           for x, fn in fns.items()})
+            plan = hp.probe_1d_plan(bins, vals, leaf, ids, num_bins=B)
+            t = ms["kernel"]
+            r["probe"].update(ms=t, call_ms=call_ms["kernel"], turns=turns,
+                              earlier_ms=ms.get(PROBE_1D_EXTRA + "parent"),
+                              extras_ms={x: ms[x] for x in probe_extras},
+                              extras_call_ms={x: call_ms[x]
+                                              for x in probe_extras},
+                              plan=plan)
+            r["kernel_a"].update(ms=ms["kernel_a"],
+                                 call_ms=call_ms["kernel_a"])
+            split = None
+            if all(x in ms for x in PROBE_1D_SPLIT):
+                no_adds, no_red, neither = (ms[x] for x in PROBE_1D_SPLIT)
+                split = dict(adds=t - no_adds, reduction=t - no_red,
+                             rest=neither)
+                r["probe"]["split_ms"] = split
+            print(f"{label} F={F} n={n} B={B} K={K} C={C} ({leaves}): "
+                  f"passes {plan}; device ms in turns: kernel {t:.4f}, "
+                  f"kernel A {ms['kernel_a']:.4f} (kernel / kernel A "
+                  f"{t / ms['kernel_a']:.3f})" + "".join(
+                      f", {x} {ms[x]:.4f} ({x} / kernel {ms[x] / t:.3f})"
+                      for x in probe_extras)
+                  + f" {turns}; per call: " + ", ".join(
+                      f"{x} {c:.4f}" for x, c in call_ms.items())
+                  + (f"; split (stripped copies): adds {split['adds']:.4f},"
+                     f" reduction {split['reduction']:.4f}, the rest "
+                     f"(loads, slot lookups, zeroing, partial writes, "
+                     f"barrier) {split['rest']:.4f}" if split else "")
+                  + f"; index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"(half its rate: {2 * b_ms:.4f} ms, reached "
+                  f"{t <= 2 * b_ms})", flush=True)
+        else:
+            r["kernel_a"]["ms"] = time_ms(lambda: variants["kernel_a"](vals))
             for nb in hp.NIBBLE_WIDTHS:
                 tag = f"nb{nb}"
                 fns = {"kernel": lambda nb=nb: hp.hist_probe_nibble(
@@ -948,10 +1052,11 @@ def probe_phase(dev, hp, th, nibble_extras, nibble_usage):
                       + f"{times}; index_add_ {lib_ms:.4f} ms, kernel A "
                       f"f32 {r['kernel_a']['ms']:.4f} ms, bound "
                       f"{b_ms:.4f} ms", flush=True)
-        res[name] = dict(F=F, n=n, B=B, K=K, C=C, matched_rows=m,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by, variants=r)
-        print(f"{name} F={F} n={n} B={B} K={K} C={C}: " + ", ".join(
+        res[label] = dict(F=F, n=n, B=B, K=K, C=C, leaves=leaves,
+                          matched_rows=m, plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                          variants=r)
+        print(f"{label} F={F} n={n} B={B} K={K} C={C}: " + ", ".join(
             f"{t} {v['ms']:.4f} ms" for t, v in r.items())
             + f" (plain {plain_ms:.2f} ms, index_add_ {lib_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms); exact-sum inputs bit-equal", flush=True)
@@ -1299,7 +1404,8 @@ def main(argv):
     try:
         kernels.build()
     finally:
-        extras, nibble_extras, extra_paths = finish_extra_builds(jobs)
+        extras, nibble_extras, probe_extras, extra_paths = \
+            finish_extra_builds(jobs)
         parent = finish_parent_builds(pjobs)
     print(f"kernel build (nvcc, {len(kernels.KERNELS) + len(jobs)} sources "
           f"in parallel, + {len(pjobs)} under {MOVE_PARENT_DIR}): "
@@ -1314,20 +1420,28 @@ def main(argv):
                       f"(C=3): {usage}; atomics {ops}", flush=True)
     nibble_usage = None
     for lib in [kernels.library_path("hist_probes")] + [
-            extra_paths[x] for x in nibble_extras]:
-        # the probe shape's instance: 3 channels (4-row loads in a
-        # library whose kernel also has a 1-row instance)
+            extra_paths[x] for x in list(nibble_extras) + list(probe_extras)]:
+        # the probe shapes' instances: 3 channels (4-row loads where the
+        # kernel also has a 1-row instance)
         for func, (usage, ops) in sass_summary(lib, kernels).items():
             if "probe_nibble_kernelILi3E" in func and "ILi3ELi1E" not in func:
                 print(f"sass {os.path.basename(str(lib))} nibble probe "
                       f"(C=3): {usage}; atomics {ops}", flush=True)
                 nibble_usage = nibble_usage or usage
+            elif "probe_1d_kernel" in func and (
+                    "ELi4ELi3EE" in func or "ILi3EE" in func):
+                print(f"sass {os.path.basename(str(lib))} 1-D probe "
+                      f"{func} (C=3): {usage}; atomics {ops}", flush=True)
 
+    if "--only-probes" in argv:
+        probe_phase(dev, hp, th, nibble_extras, nibble_usage, probe_extras)
+        return 0
     n_full_pad = pad_rows(N_FULL, Config({}).tpu_rows_per_block)
     hist = histogram_phase(dev, th, tp, n_full_pad)
     comp = compaction_phase(dev, tc, parent)
     part = partition_phase(dev, tp, n_full_pad, parent)
-    probes = probe_phase(dev, hp, th, nibble_extras, nibble_usage)
+    probes = probe_phase(dev, hp, th, nibble_extras, nibble_usage,
+                         probe_extras)
     rec = HistRecorder(serial, th)
     train = train_phase(lgt, th, tc, tp, rec)
     full = full_row_phase(lgt, th, tc, tp, n_full_pad, rec, extras)
@@ -1359,6 +1473,14 @@ def main(argv):
                     shapes={k: pr[k] for k in ("F", "n", "B", "K", "C",
                                                "matched_rows")},
                     variants=pr["variants"], **(dict(
+                        earlier_ms=v["earlier_ms"], call_ms=v["call_ms"],
+                        plan=v["plan"], uniform_ids={
+                            k: probes["hist_probe_1d_uniform"][k]
+                            for k in ("F", "n", "B", "K", "C",
+                                      "matched_rows", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by",
+                                      "variants")})
+                        if name == "hist_probe_1d" else {}), **(dict(
                         ms_by_nb={nb: pr["variants"][f"nb{nb}"]["ms"]
                                   for nb in hp.NIBBLE_WIDTHS},
                         earlier_ms_by_nb={

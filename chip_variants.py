@@ -19,6 +19,22 @@ in reverse), as device time, the real variants checked bit-equal to the
 plain version first. One line per kernel, the card's name and power
 limit first. It needs a CUDA device and imports neither JAX nor
 ``lightgbm_tpu``.
+
+    python3 chip_variants.py --probe-extras [--parent REV]
+
+needs neither a device nor nvcc: it writes the 1-D probe's variants,
+copies of ``hist_probes.cu`` with its text edited, as
+``build/hist_extra/probe1d_*.cu``, where ``chip_smoke.py`` builds them
+and times each beside the 1-D probe in turns: the other design of the
+adds (``k1dWarpTiles`` flipped), 1, 4, 8 or 16 replicas of each slot tile
+in place of 32 (``k1dMinReplicas``: more features a pass, fewer reads of
+the rows, more bank conflicts; 1 reads each row once for all features
+at one live lane), bins of 2 or 8 features loaded together in place of
+4, and stripped copies whose outputs are wrong and only timed (int32
+adds in place of the f32 ones, also at 1 replica; no adds, no
+reduction, neither; no adds and neither at 1 replica). With ``--parent
+REV`` (in a git checkout) it also writes REV's ``hist_probes.cu`` as
+``probe1d_parent.cu``.
 """
 import ctypes
 import os
@@ -58,6 +74,23 @@ STRIPPED = {
                 "b += kThreads)\n    dst[b] = src[b];\n", ""),
 }
 EDITS = dict(SHAPES, **{tag: [edit] for tag, edit in STRIPPED.items()})
+# the 1-D probe's edits of hist_probes.cu: the other design of its adds,
+# and the stripped copies (an add never taken keeps the loads and slot
+# lookups)
+WARP_TILES = ("constexpr bool k1dWarpTiles = false;",
+              "constexpr bool k1dWarpTiles = true;")
+PROBE_1D_INT32 = ("  for (int c = 0; c < kC; ++c) atomicAdd(cell + c * R, v[c]);",
+                  "  for (int c = 0; c < kC; ++c) atomicAdd(reinterpret_cast"
+                  "<int*>(cell + c * R), __float_as_int(v[c]));")
+PROBE_1D_NO_ADDS = [("  if (s < 0 || b >= B) return;\n  float* cell",
+                     "  if (s < 0 || b >= B || __float_as_int(v[0]) != "
+                     "0x7f7f7f7f) return;\n  float* cell"),
+                    ("              add_warp<kC>(tl, hit, b, v, lane);",
+                     "              if (__float_as_int(v[0]) == 0x7f7f7f7f)"
+                     " add_warp<kC>(tl, hit, b, v, lane);")]
+PHASE_2 = ("  // ---- phase 2: partials -> output rows (k, f), in CTA order "
+           "----------\n  cg::this_grid().sync();\n")
+PROBE_1D_NO_REDUCE = (PHASE_2, PHASE_2 + "  return;\n")
 ENTRIES = {"partition": ("lgbt_partition_move",
                          "lgbt_partition_scratch_bytes"),
            "compact": ("lgbt_compact_by_mask", "lgbt_compact_scratch_bytes")}
@@ -107,7 +140,60 @@ def bound_lib(mod, name, lib):
     return lambda: lib
 
 
+def write_probe_extras(parent=None):
+    """Write the 1-D probe's variant and stripped copies (and REV's
+    ``hist_probes.cu``, for ``parent=REV``) under ``build/hist_extra/``;
+    returns the paths."""
+    with open(os.path.join(SRC, "hist_probes.cu")) as fh:
+        src = fh.read()
+    reps = "constexpr int k1dMinReplicas = {};"
+    rows_once = (reps.format(32), reps.format(1))
+    batch = "constexpr int k1dBinBatch = {};"
+    edits = {"probe1d_warp_tiles": [WARP_TILES],
+             **{f"probe1d_replicas{r}": [(reps.format(32), reps.format(r))]
+                for r in (1, 4, 8, 16)},
+             **{f"probe1d_binbatch{b}": [(batch.format(4), batch.format(b))]
+                for b in (2, 8)},
+             "probe1d_int32": [PROBE_1D_INT32],
+             "probe1d_replicas1_int32": [rows_once, PROBE_1D_INT32],
+             "probe1d_no_adds": PROBE_1D_NO_ADDS,
+             "probe1d_no_reduce": [PROBE_1D_NO_REDUCE],
+             "probe1d_no_adds_no_reduce": PROBE_1D_NO_ADDS
+             + [PROBE_1D_NO_REDUCE],
+             "probe1d_replicas1_no_adds": [rows_once] + PROBE_1D_NO_ADDS,
+             "probe1d_replicas1_no_adds_no_reduce": [rows_once]
+             + PROBE_1D_NO_ADDS + [PROBE_1D_NO_REDUCE]}
+    out_dir = os.path.join(ROOT, "build", "hist_extra")
+    os.makedirs(out_dir, exist_ok=True)
+    texts = {}
+    for tag, tag_edits in edits.items():
+        text = src
+        for old, new in tag_edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{tag}: anchor not found once in "
+                                   f"hist_probes.cu: {old!r}")
+            text = text.replace(old, new)
+        texts[tag] = text
+    if parent:
+        texts["probe1d_parent"] = subprocess.run(
+            ["git", "show", f"{parent}:lightgbm_tpu_torch/csrc/"
+             "hist_probes.cu"], cwd=ROOT, capture_output=True, text=True,
+            check=True).stdout
+    paths = []
+    for tag, text in texts.items():
+        paths.append(os.path.join(out_dir, f"{tag}.cu"))
+        with open(paths[-1], "w") as fh:
+            fh.write(text)
+    return paths
+
+
 def main():
+    if "--probe-extras" in sys.argv:
+        parent = (sys.argv[sys.argv.index("--parent") + 1]
+                  if "--parent" in sys.argv else None)
+        for path in write_probe_extras(parent):
+            print(path)
+        return 0
     if not torch.cuda.is_available():
         print("chip_variants.py: no CUDA device visible to torch",
               file=sys.stderr)

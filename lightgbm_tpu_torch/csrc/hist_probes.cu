@@ -17,14 +17,60 @@
 // rate.
 //
 // 1. lgbt_hist_probe_1d replaces the TPU probe benchmarks/kernel_probe.py
-//    (hist1d), whose grid runs over row blocks only. Here too the grid is
-//    row chunks only: each CTA reads its chunk's leaf ids and values ONCE,
-//    staging the rows' lane bitmasks and bf16-rounded values in shared
-//    memory, then loops over feature tiles whose [K][tile][B][C]
-//    accumulator fits beside them, flushing each tile with global atomics
-//    into an output the caller zeroed. Kernel A instead gives each CTA one
-//    feature, so every CTA re-reads the values and ids (through L2). Only
-//    lanes that some row of the chunk matches are zeroed and flushed.
+//    (hist1d), whose grid runs over row blocks only. Its question: does
+//    reading each row's leaf id and values once for every feature beat
+//    kernel A, which re-reads them for each block of 1-2 features?
+//
+//    What held its first design back (a CTA per 2048-row chunk, 512 CTAs,
+//    a [K][tile][B][C] accumulator for every lane, 0.571 ms at the probe's
+//    shape, F=28, n=2^20, B=256, K=16, C=3, every row in lane 0): tiles
+//    for all 16 lanes left room for 3 features, so 10 feature tiles ran in
+//    turn, each a zero pass, an add pass and a flush; 3.9 waves of CTAs,
+//    each flushing its 28 x 768 live words with global atomics (~11M, 512
+//    to an address) into an output a separate launch zeroed; one byte load
+//    per (row, feature); and an f32 shared atomicAdd, a compare-and-swap
+//    loop on sm_90a (ATOMS.CAST.SPIN), per (row, feature, channel).
+//
+//    The design:
+//    - Slots for the lanes that rows carry. A CTA first numbers the
+//      distinct non-negative ids of small_ids (a repeated id shares its
+//      slot); in phase 0 each CTA looks up an equal part of the leaf ids
+//      and stores the slots they carry in its word of the scratch, and
+//      after a grid-wide barrier every CTA keeps only the slots some row
+//      carries (one at the probe's shape). Lanes without one get zeros.
+//    - Passes. The shared budget holds T slot tiles of W = B*C (made odd)
+//      words. Where one feature's tiles fit with 32 replicas each, a pass
+//      takes the features that fit with 32 replicas (two at one live
+//      lane): thread lane t adds into replica t, so the f32 atomicAdd of
+//      a warp never meets a bank conflict or a second lane on its address.
+//      Else a pass takes as many features as fit, one replica (two at 32
+//      live lanes). Each feature block of a pass is one more read of the
+//      rows' ids and values (from L2).
+//    - Grid: one 1024-thread CTA per SM (a cooperative launch, the CTAs
+//      resident by cudaOccupancyMaxActiveBlocksPerMultiprocessor), each
+//      an equal share of the (feature block, row) space. Rows are read 4
+//      at a time, 16-byte loads of ids and values and 4-byte loads of the
+//      bins of 4 features, issued before any is used (8 features a batch
+//      spill registers at 1024 threads).
+//    - No global atomics, no zero-fill: after a pass a CTA sums its
+//      replicas and stores its slot tiles as a partial histogram in the
+//      caller's scratch; after a second grid-wide barrier the elements of
+//      the live output rows are cut into one equal run per CTA, each
+//      element's partials summed with eight loads in flight (by several
+//      threads where a run is short), and every output element is written.
+//
+//    Measured on an H100 80GB HBM3 at 700 W (PERF.md): 0.109 ms at the
+//    probe's shape against 0.556 for the first design, 0.239 for kernel A
+//    and 2.55 for one index_add_; 0.257 at 32 live lanes (ids uniform),
+//    kernel A 0.254. Reading every row once for all 28 features (as many
+//    features a pass as fit: two replicas a tile at one live lane), the
+//    same kernel takes 0.219 ms: the f32 compare-and-swap loop on
+//    bank-conflicted tiles costs more than 13 more reads of the ids and
+//    values. With int32 adds in place of the
+//    f32 loop (a stripped copy) it takes 0.076 ms, 0.070 rows-once. Tried
+//    and slower (0.265 ms at the probe's shape, 7.6 ms at 32 lanes): each
+//    tile owned by one warp, rows staged in shared memory, lanes that hit
+//    one bin merged with __match_any_sync and no atomics.
 // 2. lgbt_hist_probe_nibble replaces the TPU probe
 //    benchmarks/nibble_probe.py (hist_nibble), which splits a bin as
 //    b = nb*u + v and keeps an [nb][K][C] tile per group u. nb is a
@@ -112,121 +158,684 @@ __device__ __forceinline__ uint32_t lanes_of(int lid, const uint32_t* table,
   return mask;
 }
 
-// ---- probe 1: row-chunk grid, feature tiles ------------------------------
-constexpr int k1dThreads = 512;
+// ---- probe 1: a grid of row shares, slot tiles of the carried lanes ----
+constexpr int k1dThreads = 1024;
+constexpr int k1dWarps = k1dThreads / 32;
+constexpr int k1dMaxReplicas = 32;
+// rows staged at once for the warp-owned tiles (four a thread)
+constexpr int k1dStage = 4 * k1dThreads;
+constexpr long long k1dMinShare = 8192;  // (block, row) units a CTA, at least
+// CTAs at most
+constexpr int k1dMaxCtas = 256;
+constexpr int k1dOffsets = 4096;         // reduction offsets held at once
+constexpr int k1dBinBatch = 4;           // features whose bins load together
+// replicas a slot tile gets where one feature's tiles fit with them
+// (design b): 32 make the adds free of bank conflicts, at two features a
+// pass at one live lane; where they do not fit, as many features a pass
+// as fit. 1 reads every row once for all the features that fit.
+constexpr int k1dMinReplicas = 32;
+// How a pass adds a (row, feature) into the slot tiles: false, replicas
+// and shared f32 atomicAdd (design b); true, warp-owned tiles and no
+// atomics (design a). The other design is timed as a variant.
+constexpr bool k1dWarpTiles = false;
 
+// the slots of small_ids, shared by the CTA: first one per distinct
+// non-negative id, then one per such id that some row carries (live)
+struct Meta1d {
+  int live;                        // L: slots
+  int tsize;                       // table entries in use (largest id + 1)
+  int big;                         // a slot's id >= kTable
+  int nlive;                       // lanes with a slot
+  unsigned used;                   // slots the CTA's rows carry (phase 0)
+  int slot_id[kMaxLanes];          // each slot's leaf id
+  int lane_slot[kMaxLanes];        // each lane's slot, or -1
+  int lane_order[kMaxLanes];       // lanes with a slot first, then the rest
+};
+
+constexpr int kMeta1dBytes = (sizeof(Meta1d) + 15) / 16 * 16;
+
+// design a's stage: bf16 values [C][k1dStage] and slots [k1dStage]
+template <bool kWarp, int kC>
+__host__ __device__ constexpr int stage_1d_bytes() {
+  return kWarp ? (k1dStage * (2 * kC + 1) + 15) / 16 * 16 : 0;
+}
+
+// the launch's shape
+struct Plan1d {
+  int W;        // words of one slot tile: B * C, made odd
+  int tiles;    // T: slot tiles that fit in shared memory
+  int grid;     // CTAs launched, all resident (a cooperative launch)
+  int smem;     // dynamic shared memory per CTA
+};
+
+// the passes for L live slots, computed alike on the host and in every CTA
+struct Pass1d {
+  int ft;            // features per pass: as many as fit, L tiles each
+  int reps;          // R: replicas of each slot tile (1 for warp tiles)
+  int nfb;           // feature blocks: the times every row is read
+  int ctas;          // CTAs with a share of the (block, row) space
+  int smax;          // feature blocks one share touches, at most
+  long long share;   // (feature block, row) units per CTA
+};
+
+__host__ __device__ inline Pass1d plan_pass(int L, int n, int F, int tiles,
+                                            int grid, int vec,
+                                            bool warp_tiles) {
+  Pass1d q;
+  const int per_feature = L * (warp_tiles ? 1 : k1dMinReplicas);
+  q.ft = L > 0 ? min(F, tiles / per_feature > 0 ? tiles / per_feature
+                                                : tiles / L) : F;
+  int r = 1;
+  if (!warp_tiles && L > 0) {
+    r = tiles / (q.ft * L);
+    if (r > k1dMaxReplicas) r = k1dMaxReplicas;
+    while (r & (r - 1)) r &= r - 1;          // a power of two
+  }
+  q.reps = r;
+  q.nfb = (F + q.ft - 1) / q.ft;
+  const long long total = static_cast<long long>(q.nfb) * n;
+  long long ctas = (total + k1dMinShare - 1) / k1dMinShare;
+  if (ctas > grid) ctas = grid;
+  long long share = (total + ctas - 1) / ctas;
+  share = (share + vec - 1) / vec * vec;
+  q.share = share;
+  q.ctas = static_cast<int>((total + share - 1) / share);
+  const long long smax = (share - 1) / n + 2;
+  q.smax = static_cast<int>(smax < q.nfb ? smax : q.nfb);
+  return q;
+}
+
+// Warp 0: one slot for each distinct non-negative id of small_ids whose
+// slot so far (the rank of its first lane among the first lanes of such
+// ids) is in `keep`, numbered in lane order; the leaf -> slot + 1 table
+// entries of the ids dropped are cleared.
+__device__ void make_slots(Meta1d& meta, uint8_t* table,
+                           const int32_t* __restrict__ small_ids, int K,
+                           unsigned keep) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int id = lane < K ? small_ids[lane] : -1;
+  int first_of = -1;                         // first lane with this id
+  for (int j = 0; j < 32; ++j) {
+    const int other = __shfl_sync(full, id, j);
+    if (first_of < 0 && id >= 0 && other == id) first_of = j;
+  }
+  const bool first = id >= 0 && first_of == lane;
+  const unsigned named = __ballot_sync(full, first);
+  const bool kept = id >= 0
+      && (keep >> __popc(named & ((1u << first_of) - 1u)) & 1u);
+  const unsigned live = __ballot_sync(full, first && kept);
+  const int slot = kept ? __popc(live & ((1u << first_of) - 1u)) : -1;
+  const int L = __popc(live);
+  const unsigned maxid = __reduce_max_sync(
+      full, kept ? static_cast<unsigned>(id) : 0u);
+  meta.lane_slot[lane] = slot;
+  const unsigned has = __ballot_sync(full, slot >= 0);
+  const unsigned below = (1u << lane) - 1u;
+  if (lane < K) {
+    meta.lane_order[slot >= 0 ? __popc(has & below)
+                    : __popc(has) + __popc(~has & below)] = lane;
+  }
+  if (first && id < kTable) {
+    table[id] = kept ? static_cast<uint8_t>(slot + 1) : 0;
+  }
+  if (first && kept) meta.slot_id[slot] = id;
+  if (lane == 0) {
+    meta.live = L;
+    meta.nlive = __popc(has);
+    meta.used = 0u;
+    meta.tsize = L > 0 ? min(static_cast<int>(maxid) + 1, kTable) : 0;
+    meta.big = L > 0 && maxid >= static_cast<unsigned>(kTable);
+  }
+}
+
+// slot of a leaf id, or -1: one compare skips negative ids
+__device__ __forceinline__ int slot_of(int lid, const uint8_t* table,
+                                       int tsize, bool big, const Meta1d& m) {
+  if (static_cast<unsigned>(lid) < static_cast<unsigned>(tsize)) {
+    return static_cast<int>(table[lid]) - 1;
+  }
+  if (big && lid >= kTable) {
+    for (int s = 0; s < m.live; ++s) {
+      if (m.slot_id[s] == lid) return s;
+    }
+  }
+  return -1;
+}
+
+// four consecutive rows: their slots and bf16-rounded values
 template <int kC>
-__global__ void __launch_bounds__(k1dThreads)
+struct Quad1d {
+  int s[4];
+  float v[4][kC];
+};
+
+// load four rows' ids (16 bytes) and values (16 bytes a channel), all
+// issued before any is used, then look up the slots
+template <int kC>
+__device__ __forceinline__ void load_quad1d(
+    Quad1d<kC>& q, int r, const float* __restrict__ vals_t,
+    const int32_t* __restrict__ leaf_id, int n, const uint8_t* table,
+    int tsize, bool big, const Meta1d& m) {
+  const int4 lid = *reinterpret_cast<const int4*>(leaf_id + r);
+  float4 x[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    x[c] = *reinterpret_cast<const float4*>(vals_t + static_cast<size_t>(c)
+                                            * n + r);
+  }
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    q.v[0][c] = bf16_round(x[c].x);
+    q.v[1][c] = bf16_round(x[c].y);
+    q.v[2][c] = bf16_round(x[c].z);
+    q.v[3][c] = bf16_round(x[c].w);
+  }
+  q.s[0] = slot_of(lid.x, table, tsize, big, m);
+  q.s[1] = slot_of(lid.y, table, tsize, big, m);
+  q.s[2] = slot_of(lid.z, table, tsize, big, m);
+  q.s[3] = slot_of(lid.w, table, tsize, big, m);
+}
+
+// design b: one row's values into slot s's tile of pass feature fi,
+// replica rep, with shared atomicAdd
+template <int kC>
+__device__ __forceinline__ void add_rep(float* tile, int tile_words, int L,
+                                        int R, int rep, int B, int fi, int s,
+                                        int b, const float (&v)[kC]) {
+  if (s < 0 || b >= B) return;
+  float* cell = tile + (fi * L + s) * tile_words + b * kC * R + rep;
+#pragma unroll
+  for (int c = 0; c < kC; ++c) atomicAdd(cell + c * R, v[c]);
+}
+
+// design a: 32 rows of one warp (one a lane) into the warp's own tile, no
+// atomics. Lanes whose rows hit one bin are merged (__match_any_sync); the
+// lowest lane of each group adds the group's sum, summed in lane order.
+template <int kC>
+__device__ __forceinline__ void add_warp(float* tl, bool hit, int b,
+                                         const float (&v)[kC], int lane) {
+  const unsigned full = 0xffffffffu;
+  const unsigned peers = __match_any_sync(full, hit ? b : 256 + lane);
+  if (__all_sync(full, !hit || peers == (1u << lane))) {
+    if (hit) {
+#pragma unroll
+      for (int c = 0; c < kC; ++c) tl[b * kC + c] += v[c];
+    }
+    return;
+  }
+  const bool lead = hit && __ffs(peers) - 1 == lane;
+  unsigned todo = lead ? peers & (peers - 1u) : 0u;
+  float acc[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) acc[c] = v[c];
+  while (__any_sync(full, todo != 0u)) {
+    const int src = todo ? __ffs(todo) - 1 : lane;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const float x = __shfl_sync(full, v[c], src);
+      if (todo) acc[c] += x;
+    }
+    todo &= todo - 1u;
+  }
+  if (lead) {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) tl[b * kC + c] += acc[c];
+  }
+}
+
+template <bool kWarp, int kVec, int kC>
+__global__ void __launch_bounds__(k1dThreads, 1)
 probe_1d_kernel(const uint8_t* __restrict__ bins_t,
                 const float* __restrict__ vals_t,
                 const int32_t* __restrict__ leaf_id,
                 const int32_t* __restrict__ small_ids, int n, int F, int K,
-                int B, int rows, int tile_f, float* __restrict__ out) {
+                int B, Plan1d p, float* __restrict__ scratch,
+                float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* table = reinterpret_cast<uint32_t*>(smem);          // [kTable]
-  int32_t* ids = reinterpret_cast<int32_t*>(table + kTable);     // [32]
-  uint32_t* used = reinterpret_cast<uint32_t*>(ids + kMaxLanes); // [4]
-  uint32_t* lane_mask = used + 4;                                // [rows]
-  float* stage = reinterpret_cast<float*>(lane_mask + rows);     // [C][rows]
-  float* acc = stage + static_cast<size_t>(kC) * rows;  // [K][tile][B][C]
+  Meta1d& meta = *reinterpret_cast<Meta1d*>(smem);
+  uint8_t* table = smem + kMeta1dBytes;                         // [kTable]
+  unsigned char* work = table + kTable;        // the stage, then the tiles
+  uint16_t* st_val = reinterpret_cast<uint16_t*>(work);   // [C][k1dStage]
+  uint8_t* st_slot = reinterpret_cast<uint8_t*>(st_val + kC * k1dStage);
+  float* tile = reinterpret_cast<float*>(
+      work + stage_1d_bytes<kWarp, kC>());                      // [T][W]
 
-  const int r0 = blockIdx.x * rows;
-  const int nr = min(rows, n - r0);
-  if (threadIdx.x == 0) used[0] = 0u;
-  load_lanes(table, ids, small_ids, K);
+  const int lane = threadIdx.x & 31;
+  const int BC = B * kC;
+  for (int i = threadIdx.x; i < kTable / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(table)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) make_slots(meta, table, small_ids, K, ~0u);
   __syncthreads();
 
-  // stage the chunk: each row's leaf id and values are read once
-  uint32_t seen = 0u;
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    uint32_t m = 0u;
-    if (i < nr) m = lanes_of(leaf_id[r0 + i], table, ids, K);
-    lane_mask[i] = m;
-    if (m) {
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        stage[c * rows + i] =
-            bf16_round(vals_t[static_cast<size_t>(c) * n + r0 + i]);
+  // ---- phase 0: the slots some row carries -----------------------------
+  // Each CTA looks up the ids of an equal part of the rows and stores the
+  // slots they carry in its word of the scratch; after a grid-wide
+  // barrier every CTA ORs the words and keeps only those slots, so tiles
+  // exist only for lanes that rows fill.
+  const int G = gridDim.x;
+  unsigned* hits = reinterpret_cast<unsigned*>(scratch);        // [G]
+  float* part = scratch + (G + 3) / 4 * 4;
+  if (meta.live > 0) {
+    const int tsize0 = meta.tsize;
+    const bool big0 = meta.big != 0;
+    const long long per = (static_cast<long long>(n) + G - 1) / G
+                          / kVec * kVec + kVec;
+    const long long h0 = min(static_cast<long long>(n), blockIdx.x * per);
+    const long long h1 = min(static_cast<long long>(n), h0 + per);
+    unsigned m = 0u;
+    auto bit = [&](int lid) {
+      const int s = slot_of(lid, table, tsize0, big0, meta);
+      return s >= 0 ? 1u << s : 0u;
+    };
+    if constexpr (kVec == 4) {
+      for (long long r = h0 + 4 * threadIdx.x; r < h1; r += 4 * blockDim.x) {
+        const int4 lid = *reinterpret_cast<const int4*>(leaf_id + r);
+        m |= bit(lid.x) | bit(lid.y) | bit(lid.z) | bit(lid.w);
+      }
+    } else {
+      for (long long r = h0 + threadIdx.x; r < h1; r += blockDim.x) {
+        m |= bit(leaf_id[r]);
       }
     }
-    seen |= m;
+    m = __reduce_or_sync(0xffffffffu, m);
+    if (lane == 0 && m) atomicOr(&meta.used, m);
   }
-  if (seen) atomicOr(&used[0], seen);
   __syncthreads();
-  const uint32_t used_lanes = used[0];
-  if (used_lanes == 0u) return;
+  if (threadIdx.x == 0) hits[blockIdx.x] = meta.used;
+  cg::this_grid().sync();
+  if (threadIdx.x < 32) {
+    unsigned m = 0u;
+    for (int i = lane; i < G; i += 32) m |= __ldcg(hits + i);
+    make_slots(meta, table, small_ids, K,
+               __reduce_or_sync(0xffffffffu, m));
+  }
+  __syncthreads();
+  const int L = meta.live;
+  const int tsize = meta.tsize;
+  const bool big = meta.big != 0;
+  const Pass1d q = plan_pass(L, n, F, p.tiles, gridDim.x, kVec, kWarp);
+  const int R = q.reps;
+  const int rep = lane & (R - 1);
+  const int tile_words = R * p.W;      // one slot tile with its replicas
+  // this CTA's partials: [smax][ft][L][B*C]
+  const size_t seg_words = static_cast<size_t>(q.ft) * L * BC;
+  const size_t cta_words = q.smax * seg_words;
+  float* my_part = part + blockIdx.x * cta_words;
 
-  const int cell_stride = tile_f * B * kC;      // one lane's tile
-  for (int f0 = 0; f0 < F; f0 += tile_f) {
-    const int tf = min(tile_f, F - f0);
-    const int cells = tf * B * kC;
-    for (uint32_t m = used_lanes; m; m &= m - 1u) {
-      float* a = acc + static_cast<size_t>(__ffs(m) - 1) * cell_stride;
-      for (int i = threadIdx.x; i < cells; i += blockDim.x) a[i] = 0.f;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nr; i += blockDim.x) {
-      const uint32_t m0 = lane_mask[i];
-      if (!m0) continue;
-      float v[kC];
+  // ---- phase 1: this CTA's share of (feature block, row), each block's
+  // features histogrammed in one pass over its rows -------------------
+  const long long total = static_cast<long long>(q.nfb) * n;
+  long long pos = static_cast<long long>(blockIdx.x) * q.share;
+  const long long end = min(total, pos + q.share);
+  const int fb_first = static_cast<int>(pos / n);
+  if (L > 0) {
+    const int words = q.ft * L * tile_words;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) tile[i] = 0.f;
+  }
+  while (L > 0 && pos < end) {
+    const int fb = static_cast<int>(pos / n);
+    const int r0 = static_cast<int>(pos - static_cast<long long>(fb) * n);
+    const int r1 = static_cast<int>(min(static_cast<long long>(n),
+                                        r0 + (end - pos)));
+    const int f_lo = fb * q.ft;
+    const int nf = min(q.ft, F - f_lo);
+    const uint8_t* bins = bins_t + static_cast<size_t>(f_lo) * n;
+    __syncthreads();                     // the tiles are clear
+
+    if constexpr (!kWarp) {
+      auto add = [&](int fi, int s, int b, const float (&v)[kC]) {
+        add_rep<kC>(tile, tile_words, L, R, rep, B, fi, s, b, v);
+      };
+      if constexpr (kVec == 4) {
+        for (int r = r0 + 4 * threadIdx.x; r < r1; r += 4 * blockDim.x) {
+          Quad1d<kC> g;
+          load_quad1d<kC>(g, r, vals_t, leaf_id, n, table, tsize, big, meta);
+          if ((g.s[0] & g.s[1] & g.s[2] & g.s[3]) < 0) continue;  // no match
+          for (int f0 = 0; f0 < nf; f0 += k1dBinBatch) {
+            uchar4 b4[k1dBinBatch];
 #pragma unroll
-      for (int c = 0; c < kC; ++c) v[c] = stage[c * rows + i];
-      for (int fl = 0; fl < tf; ++fl) {
-        const int b = bins_t[static_cast<size_t>(f0 + fl) * n + r0 + i];
-        if (b >= B) continue;
-        const int base = (fl * B + b) * kC;
-        for (uint32_t m = m0; m; m &= m - 1u) {
-          float* cell = acc + static_cast<size_t>(__ffs(m) - 1) * cell_stride
-                        + base;
+            for (int e = 0; e < k1dBinBatch; ++e) {
+              if (f0 + e < nf) {
+                b4[e] = *reinterpret_cast<const uchar4*>(
+                    bins + static_cast<size_t>(f0 + e) * n + r);
+              }
+            }
 #pragma unroll
-          for (int c = 0; c < kC; ++c) atomicAdd(&cell[c], v[c]);
+            for (int e = 0; e < k1dBinBatch; ++e) {
+              if (f0 + e >= nf) break;
+              add(f0 + e, g.s[0], b4[e].x, g.v[0]);
+              add(f0 + e, g.s[1], b4[e].y, g.v[1]);
+              add(f0 + e, g.s[2], b4[e].z, g.v[2]);
+              add(f0 + e, g.s[3], b4[e].w, g.v[3]);
+            }
+          }
+        }
+      } else {
+        for (int r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
+          const int s = slot_of(leaf_id[r], table, tsize, big, meta);
+          if (s < 0) continue;
+          float v[kC];
+#pragma unroll
+          for (int c = 0; c < kC; ++c) {
+            v[c] = bf16_round(vals_t[static_cast<size_t>(c) * n + r]);
+          }
+          for (int fi = 0; fi < nf; ++fi) {
+            add(fi, s, bins[static_cast<size_t>(fi) * n + r], v);
+          }
         }
       }
-    }
-    __syncthreads();
-    // flush: a lane's tile is one contiguous run of its output
-    for (uint32_t m = used_lanes; m; m &= m - 1u) {
-      const int k = __ffs(m) - 1;
-      const float* a = acc + static_cast<size_t>(k) * cell_stride;
-      float* o = out + (static_cast<size_t>(k) * F + f0) * B * kC;
-      for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-        const float x = a[i];
-        if (x != 0.f) atomicAdd(&o[i], x);
+    } else {
+      const int warp = threadIdx.x >> 5;
+      for (int c0 = r0; c0 < r1; c0 += k1dStage) {
+        const int cn = min(k1dStage, r1 - c0);
+        // stage the chunk: slots (0xFF: no lane; also past its end) and
+        // bf16 values, each row's id and values read once
+        if constexpr (kVec == 4) {
+          const int i = 4 * threadIdx.x;
+          if (i < cn) {
+            Quad1d<kC> g;
+            load_quad1d<kC>(g, c0 + i, vals_t, leaf_id, n, table, tsize, big,
+                            meta);
+            uint32_t sl = 0u;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              sl |= static_cast<uint32_t>(g.s[j] & 0xFF) << (8 * j);
+            }
+            *reinterpret_cast<uint32_t*>(st_slot + i) = sl;
+#pragma unroll
+            for (int c = 0; c < kC; ++c) {
+              *reinterpret_cast<uint2*>(st_val + c * k1dStage + i) =
+                  make_uint2((__float_as_uint(g.v[0][c]) >> 16)
+                                 | (__float_as_uint(g.v[1][c]) & 0xffff0000u),
+                             (__float_as_uint(g.v[2][c]) >> 16)
+                                 | (__float_as_uint(g.v[3][c]) & 0xffff0000u));
+            }
+          }
+        } else {
+          for (int i = threadIdx.x; i < (cn + 3) / 4 * 4; i += blockDim.x) {
+            int s = -1;
+            if (i < cn) {
+              s = slot_of(leaf_id[c0 + i], table, tsize, big, meta);
+#pragma unroll
+              for (int c = 0; c < kC; ++c) {
+                st_val[c * k1dStage + i] = static_cast<uint16_t>(
+                    __float_as_uint(bf16_round(
+                        vals_t[static_cast<size_t>(c) * n + c0 + i])) >> 16);
+              }
+            }
+            st_slot[i] = static_cast<uint8_t>(s & 0xFF);
+          }
+        }
+        __syncthreads();
+        // warp w adds to the tiles t = w, w + 32, ... (t = fi * L + s):
+        // 4 rows a lane, 128 a warp, their bins read with one 4-byte load
+        for (int t = warp; t < nf * L; t += k1dWarps) {
+          const int fi = t / L;
+          const int s = t - fi * L;
+          const uint8_t* bf = bins + static_cast<size_t>(fi) * n + c0;
+          float* tl = tile + t * p.W;
+          for (int i0 = 0; i0 < cn; i0 += 128) {
+            const int i = i0 + 4 * lane;
+            uint32_t sl = 0xffffffffu;
+            uint32_t b4 = 0u;
+            uint2 x[kC] = {};
+            if (i < cn) {
+              sl = *reinterpret_cast<const uint32_t*>(st_slot + i);
+              if constexpr (kVec == 4) {
+                b4 = *reinterpret_cast<const uint32_t*>(bf + i);
+              } else {
+                for (int j = 0; j < 4 && i + j < cn; ++j) {
+                  b4 |= static_cast<uint32_t>(bf[i + j]) << (8 * j);
+                }
+              }
+#pragma unroll
+              for (int c = 0; c < kC; ++c) {
+                x[c] = *reinterpret_cast<const uint2*>(st_val + c * k1dStage
+                                                       + i);
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int b = (b4 >> (8 * j)) & 0xFF;
+              const bool hit = static_cast<int>((sl >> (8 * j)) & 0xFF) == s
+                               && b < B;
+              float v[kC];
+#pragma unroll
+              for (int c = 0; c < kC; ++c) {
+                // a bf16 is the top half of the f32 of the same value
+                const uint32_t w = j < 2 ? x[c].x : x[c].y;
+                v[c] = __uint_as_float(j % 2 == 0 ? w << 16
+                                                  : w & 0xffff0000u);
+              }
+              add_warp<kC>(tl, hit, b, v, lane);
+            }
+          }
+        }
+        __syncthreads();                 // the stage may be refilled
       }
     }
     __syncthreads();
+
+    // the block's tiles -> this CTA's partials: sum the replicas (in an
+    // order rotated by the cell, so a warp's reads fall in distinct
+    // banks) and clear them for the next block (cell i = t * BC + rem)
+    float* seg = my_part + static_cast<size_t>(fb - fb_first) * seg_words;
+    const int cells = nf * L * BC;
+    int t = threadIdx.x / BC;
+    int rem = threadIdx.x - t * BC;
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+      float* w = tile + t * tile_words + rem * R;
+      float v;
+      if (R == 1) {
+        v = w[0];
+        w[0] = 0.f;
+      } else {
+        v = 0.f;
+        for (int j = 0; j < R; ++j) {
+          const int x = (j + i) & (R - 1);
+          v += w[x];
+          w[x] = 0.f;
+        }
+      }
+      seg[i] = v;
+      rem += blockDim.x;
+      while (rem >= BC) {
+        rem -= BC;
+        ++t;
+      }
+    }
+    pos += r1 - r0;
+  }
+
+  // ---- phase 2: partials -> output rows (k, f), in CTA order ----------
+  cg::this_grid().sync();
+  // The elements of the output rows (k, f) of lanes with a slot, in row
+  // order, are cut into one equal run per CTA. A CTA takes its run in
+  // batches of whole rows whose (row, contributing CTA) partial offsets
+  // fit in shared memory (the stage and tiles are free now). Where a
+  // batch has fewer elements than threads, the threads form groups of
+  // one thread per element, each group sums an equal share of the
+  // contributing CTAs and the group sums are added in group order; else
+  // each thread sums all partials of its elements. Eight loads in flight.
+  // The zero rows of the other lanes follow.
+  float* gsum = reinterpret_cast<float*>(work);           // [k1dThreads]
+  long long* off = reinterpret_cast<long long*>(
+      work + sizeof(float) * k1dThreads);                 // [k1dOffsets]
+  const int max_nc = min(q.ctas, static_cast<int>((n + q.share - 1)
+                                                  / q.share) + 1);
+  const int batch_rows = max(1, k1dOffsets / max_nc);
+  const long long total_e = static_cast<long long>(meta.nlive) * F * BC;
+  const long long run = (total_e + G - 1) / G;
+  long long e_lo = min(total_e, blockIdx.x * run);
+  const long long e_end = min(total_e, e_lo + run);
+  while (e_lo < e_end) {
+    const int row0 = static_cast<int>(e_lo / BC);
+    const long long e_hi = min(e_end, static_cast<long long>(row0
+                                                             + batch_rows)
+                                          * BC);
+    const int ne = static_cast<int>(e_hi - e_lo);
+    const int nrows = static_cast<int>((e_hi - 1) / BC) - row0 + 1;
+    __syncthreads();                           // off and gsum are free
+    for (int x = threadIdx.x; x < nrows * max_nc; x += blockDim.x) {
+      const int t = x / max_nc;
+      const int row = row0 + t;
+      const int kl = meta.lane_order[row / F];
+      const int f = row % F;
+      const int fb = f / q.ft;
+      const int c = static_cast<int>(static_cast<long long>(fb) * n
+                                     / q.share) + x - t * max_nc;
+      const bool in = c < q.ctas
+          && static_cast<long long>(c) * q.share
+             < static_cast<long long>(fb + 1) * n;
+      const int j = in ? fb - static_cast<int>(static_cast<long long>(c)
+                                               * q.share / n) : 0;
+      off[x] = in ? static_cast<long long>(
+          static_cast<size_t>(c) * cta_words + j * seg_words
+          + (static_cast<size_t>(f - fb * q.ft) * L + meta.lane_slot[kl])
+            * BC) : -1;
+    }
+    __syncthreads();
+    const int groups = max(1, min(max_nc, static_cast<int>(blockDim.x)
+                                          / ne));
+    const int per = (max_nc + groups - 1) / groups;
+    for (int x = threadIdx.x; x < ne * groups; x += blockDim.x) {
+      const int g = x / ne;
+      const long long e = e_lo + (x - g * ne);
+      const int row = static_cast<int>(e / BC);
+      const int i = static_cast<int>(e - static_cast<long long>(row) * BC);
+      const long long* o_t = off + (row - row0) * max_nc;
+      const int c_end = min(max_nc, (g + 1) * per);
+      float v = 0.f;
+      for (int c0 = g * per; c0 < c_end; c0 += 8) {
+        float y[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const long long o = c0 + t < c_end ? o_t[c0 + t] : -1;
+          y[t] = o >= 0 ? __ldcg(part + o + i) : 0.f;
+        }
+#pragma unroll
+        for (int t = 0; t < 8; ++t) v += y[t];
+      }
+      if (groups == 1) {
+        out[(static_cast<size_t>(meta.lane_order[row / F]) * F + row % F)
+            * BC + i] = v;
+      } else {
+        gsum[x] = v;
+      }
+    }
+    if (groups > 1) {
+      __syncthreads();
+      for (int x = threadIdx.x; x < ne; x += blockDim.x) {
+        const long long e = e_lo + x;
+        const int row = static_cast<int>(e / BC);
+        const int i = static_cast<int>(e - static_cast<long long>(row) * BC);
+        float v = gsum[x];
+        for (int h = 1; h < groups; ++h) v += gsum[h * ne + x];
+        out[(static_cast<size_t>(meta.lane_order[row / F]) * F + row % F)
+            * BC + i] = v;
+      }
+    }
+    e_lo = e_hi;
+  }
+  const int dead_rows = (K - meta.nlive) * F;
+  for (int row = blockIdx.x; row < dead_rows; row += G) {
+    const int kl = meta.lane_order[meta.nlive + row / F];
+    float* o = out + (static_cast<size_t>(kl) * F + row % F) * BC;
+    for (int i = threadIdx.x; i < BC; i += blockDim.x) o[i] = 0.f;
   }
 }
 
-size_t smem_1d(int rows, int tile_f, int K, int B, int C) {
-  return (kTable + kMaxLanes + 4) * sizeof(uint32_t)
-         + static_cast<size_t>(rows) * (1 + C) * sizeof(float)
-         + static_cast<size_t>(K) * tile_f * B * C * sizeof(float);
+int num_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+  }
+  return sms;
 }
 
-template <int kC>
-int launch_1d(const uint8_t* bins_t, const float* vals_t,
-              const int32_t* leaf_id, const int32_t* small_ids, int n, int F,
-              int K, int B, float* out, cudaStream_t stream) {
-  // the largest row chunk (<= 2048) beside at least one feature's tile,
-  // then as many features per tile as still fit
-  int rows = 2048;
-  while (rows > 256 && smem_1d(rows, 1, K, B, kC) > kSmemLimit) rows /= 2;
-  if (smem_1d(rows, 1, K, B, kC) > kSmemLimit) {
+// The launch for these arguments: slot tiles and shared memory from the
+// budget, one CTA per SM (as many as are resident with that shared
+// memory: cudaOccupancyMaxActiveBlocksPerMultiprocessor), capped by the
+// work. cudaErrorInvalidValue when the tiles of min(K, 32) slots of one
+// feature do not fit, cudaErrorCooperativeLaunchTooLarge when no CTA is
+// resident.
+template <bool kWarp, int kVec, int kC>
+int plan_1d(int n, int F, int K, int B, Plan1d* p) {
+  auto kernel = probe_1d_kernel<kWarp, kVec, kC>;
+  static std::map<int, int> resident;        // smem -> CTAs per SM
+  p->W = (B * kC) | 1;                       // odd: tiles never alias banks
+  const int fixed = kMeta1dBytes + kTable + stage_1d_bytes<kWarp, kC>();
+  p->tiles = (static_cast<int>(kSmemLimit) - fixed) / (p->W * 4);
+  if (p->tiles < std::min(K, kMaxLanes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int tile_f = 1;
-  while (tile_f < F && smem_1d(rows, tile_f + 1, K, B, kC) <= kSmemLimit) {
-    ++tile_f;
+  p->smem = fixed + p->tiles * p->W * 4;
+  if (resident.empty()) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(kSmemLimit));
   }
-  const size_t smem = smem_1d(rows, tile_f, K, B, kC);
-  cudaFuncSetAttribute(probe_1d_kernel<kC>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
-  const unsigned grid = (n + rows - 1) / rows;
-  probe_1d_kernel<kC><<<grid, k1dThreads, smem, stream>>>(
-      bins_t, vals_t, leaf_id, small_ids, n, F, K, B, rows, tile_f, out);
+  auto it = resident.find(p->smem);
+  if (it == resident.end()) {
+    int per_sm = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, k1dThreads, p->smem) != cudaSuccess) {
+      cudaGetLastError();
+      per_sm = 0;
+    }
+    it = resident.emplace(p->smem, per_sm).first;
+  }
+  if (it->second < 1) {
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  }
+  long long grid = std::min<long long>(it->second * num_sms(), k1dMaxCtas);
+  grid = std::min(grid, (static_cast<long long>(F) * n + k1dMinShare - 1)
+                        / k1dMinShare);
+  p->grid = static_cast<int>(std::max(1LL, grid));
+  return 0;
+}
+
+// scratch words for any number of live slots up to min(K, 32): a word
+// per CTA (phase 0), then the partial histograms
+size_t scratch_1d(const Plan1d& p, int n, int F, int K, int B, int C,
+                  int vec, bool warp_tiles) {
+  size_t most = 0;
+  for (int L = 1; L <= std::min(K, kMaxLanes); ++L) {
+    const Pass1d q = plan_pass(L, n, F, p.tiles, p.grid, vec, warp_tiles);
+    most = std::max(most, static_cast<size_t>(q.ctas) * q.smax * q.ft * L
+                              * B * C);
+  }
+  return (p.grid + 3) / 4 * 4 + most;
+}
+
+template <bool kWarp, int kVec, int kC>
+int launch_1d(const uint8_t* bins_t, const float* vals_t,
+              const int32_t* leaf_id, const int32_t* small_ids, int n, int F,
+              int K, int B, float* scratch, float* out, cudaStream_t stream) {
+  Plan1d p;
+  const int rc = plan_1d<kWarp, kVec, kC>(n, F, K, B, &p);
+  if (rc != 0) return rc;
+  auto kernel = probe_1d_kernel<kWarp, kVec, kC>;
+  void* args[] = {&bins_t, &vals_t, &leaf_id, &small_ids, &n, &F, &K, &B,
+                  &p, &scratch, &out};
+  cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                              dim3(static_cast<unsigned>(p.grid)),
+                              dim3(k1dThreads), args,
+                              static_cast<size_t>(p.smem), stream);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the 4-row path needs whole groups of 4 and 16-byte aligned rows
+bool vec_rows(const void* bins_t, const void* vals_t, const void* leaf_id,
+              int n) {
+  return n % 4 == 0 && reinterpret_cast<uintptr_t>(vals_t) % 16 == 0
+      && reinterpret_cast<uintptr_t>(leaf_id) % 16 == 0
+      && reinterpret_cast<uintptr_t>(bins_t) % 4 == 0;
 }
 
 // ---- probe 2: bin groups of nb, one thread-block cluster per tile chunk --
@@ -558,11 +1167,12 @@ bool bad_shape(int C, int K, int B) {
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes). `out` is [K, F, B, C] f32,
-// zeroed by the caller. Return cudaGetLastError(), or cudaErrorInvalidValue
-// for shapes the probes do not take (K > 32, C > 8, B > 256, a tile that
-// does not fit in shared memory), or cudaErrorInvalidConfiguration when no
-// cluster of the nibble probe can be scheduled.
+// Plain C entry points (bound with ctypes). Return cudaGetLastError(), or
+// cudaErrorInvalidValue for shapes the probes do not take (K > 32, C > 8,
+// B > 256, tiles that do not fit in shared memory),
+// cudaErrorInvalidConfiguration when no cluster of the nibble probe can
+// be scheduled, or cudaErrorCooperativeLaunchTooLarge when no CTA of the
+// 1-D probe is resident.
 #define LGBT_SWITCH_C(CALL)                                               \
   switch (C) {                                                            \
     case 1: return CALL(1);                                               \
@@ -576,23 +1186,80 @@ bool bad_shape(int C, int K, int B) {
     default: return static_cast<int>(cudaErrorInvalidValue);             \
   }
 
+// The 1-D probe's launch shape for these arguments with `live` distinct
+// non-negative lane ids, as eleven long longs in `plan`: words of a slot
+// tile, slot tiles, CTAs launched, shared memory per CTA, features per
+// pass, replicas, feature blocks (reads of every row), CTAs with a share,
+// feature blocks per share at most, (block, row) units per share, and
+// the scratch bytes of the launch. Returns 0 or the launch's error code.
+extern "C" int lgbt_hist_probe_1d_plan(const void* bins_t, const void* vals_t,
+                                       const void* leaf_id, int n, int F,
+                                       int C, int K, int B, int live,
+                                       long long* plan) {
+  if (n <= 0 || F <= 0 || K <= 0 || bad_shape(C, K, B) || live < 0
+      || live > std::min(K, kMaxLanes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int vec = vec_rows(bins_t, vals_t, leaf_id, n) ? 4 : 1;
+  Plan1d p;
+#define LGBT_P(c) (vec == 4 ? plan_1d<k1dWarpTiles, 4, c>(n, F, K, B, &p) \
+                            : plan_1d<k1dWarpTiles, 1, c>(n, F, K, B, &p))
+  const int rc = [&]() -> int { LGBT_SWITCH_C(LGBT_P) }();
+#undef LGBT_P
+  if (rc != 0) return rc;
+  const Pass1d q = plan_pass(live, n, F, p.tiles, p.grid, vec, k1dWarpTiles);
+  const long long v[11] = {
+      p.W, p.tiles, p.grid, p.smem, q.ft, q.reps, q.nfb, q.ctas, q.smax,
+      q.share,
+      4LL * q.ctas * q.smax * q.ft * live * B * C};
+  std::copy(v, v + 11, plan);
+  return 0;
+}
+
+// Bytes of scratch lgbt_hist_probe_1d needs for these arguments (0 when
+// the shape is refused).
+extern "C" long long lgbt_hist_probe_1d_scratch(
+    const void* bins_t, const void* vals_t, const void* leaf_id, int n,
+    int F, int C, int K, int B) {
+  if (n <= 0 || F <= 0 || K <= 0 || bad_shape(C, K, B)) return 0;
+  const int vec = vec_rows(bins_t, vals_t, leaf_id, n) ? 4 : 1;
+  Plan1d p;
+#define LGBT_P(c) (vec == 4 ? plan_1d<k1dWarpTiles, 4, c>(n, F, K, B, &p) \
+                            : plan_1d<k1dWarpTiles, 1, c>(n, F, K, B, &p))
+  const int rc = [&]() -> int { LGBT_SWITCH_C(LGBT_P) }();
+#undef LGBT_P
+  if (rc != 0) return 0;
+  return 4LL * static_cast<long long>(
+      scratch_1d(p, n, F, K, B, C, vec, k1dWarpTiles));
+}
+
+// Writes every element of `out` ([K, F, B, C] float32); `scratch` holds
+// at least the bytes lgbt_hist_probe_1d_scratch gives, in any state. n, F
+// and K are positive.
 extern "C" int lgbt_hist_probe_1d(
     const void* bins_t, const void* vals_t, const void* leaf_id,
-    const void* small_ids, int n, int F, int C, int K, int B, void* out,
-    void* stream) {
-  if (n <= 0 || F <= 0 || K <= 0) return 0;
-  if (bad_shape(C, K, B)) return static_cast<int>(cudaErrorInvalidValue);
+    const void* small_ids, int n, int F, int C, int K, int B, void* scratch,
+    void* out, void* stream) {
+  if (n <= 0 || F <= 0 || K <= 0 || bad_shape(C, K, B)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto b = static_cast<const uint8_t*>(bins_t);
   auto v = static_cast<const float*>(vals_t);
   auto l = static_cast<const int32_t*>(leaf_id);
   auto k = static_cast<const int32_t*>(small_ids);
+  auto w = static_cast<float*>(scratch);
   auto o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-#define LGBT_1D(c) launch_1d<c>(b, v, l, k, n, F, K, B, o, s)
+  const bool vec = vec_rows(bins_t, vals_t, leaf_id, n);
+#define LGBT_1D(c) (vec ? launch_1d<k1dWarpTiles, 4, c>(b, v, l, k, n, F, K, \
+                                                        B, w, o, s)          \
+                        : launch_1d<k1dWarpTiles, 1, c>(b, v, l, k, n, F, K, \
+                                                        B, w, o, s))
   LGBT_SWITCH_C(LGBT_1D)
 #undef LGBT_1D
 }
 
+// `out` is [K, F, B, C] f32, zeroed by the caller.
 extern "C" int lgbt_hist_probe_nibble(
     const void* bins_t, const void* vals_t, const void* leaf_id,
     const void* small_ids, int n, int F, int C, int K, int B, int nb,

@@ -474,3 +474,125 @@ def test_nibble_cluster_kernel(cuda_device, n, F, B, C, K, nb, leaves):
             assert bool(((out - plain).abs() <= tol).all())
         dead = (ids < 0).nonzero().flatten()
         assert not out[dead].any()
+
+
+# (n, F, B, C, K, leaf ids, lane ids, skewed bins): every row in lane 0 at
+# K = 1, 16, 32; 32 live lanes (feature blocks that re-read the rows);
+# repeated, negative and large ids; channels 1 / 3 / 8; bins 1 / 63 / 255
+# / 256; F = 1 and 28; n = 1, n % 4 != 0, below one CTA's share and past
+# 2^21; 90% of each feature's rows in one bin
+PROBE_1D_CASES = {
+    "lane0_k1": (65_536, 28, 256, 3, 1, "zeros", "arange", False),
+    "lane0_k16": (65_536, 28, 256, 3, 16, "zeros", "arange", False),
+    "lane0_k32": (65_536, 28, 256, 3, 32, "zeros", "arange", False),
+    "uniform_k32": (65_536, 28, 256, 3, 32, "uniform", "arange", False),
+    "repeated_ids": (20_000, 5, 64, 3, 6, "uniform", "repeated", False),
+    "negative_ids": (20_000, 5, 64, 3, 12, "negative", "negative", False),
+    "ids_past_table": (20_000, 4, 32, 2, 6, "big", "big", False),
+    "c1_b256": (30_000, 6, 256, 1, 8, "uniform", "arange", False),
+    "c8_b63": (30_000, 6, 63, 8, 32, "negative", "negative", False),
+    "c8_b256": (30_000, 3, 256, 8, 8, "uniform", "arange", False),
+    "b1": (10_000, 3, 1, 3, 4, "uniform", "arange", False),
+    "b255": (10_000, 3, 255, 3, 4, "uniform", "negative", False),
+    "f1": (50_000, 1, 256, 3, 16, "negative", "negative", False),
+    "n1": (1, 28, 256, 3, 4, "zeros", "arange", False),
+    "n_misaligned": (4099, 5, 64, 4, 6, "negative", "negative", False),
+    "n_below_share": (1000, 2, 64, 3, 5, "uniform", "arange", False),
+    "n_past_2e21": (2_097_164, 3, 256, 3, 8, "uniform", "arange", False),
+    "skewed_lane0": (65_536, 28, 256, 3, 16, "zeros", "arange", True),
+    "skewed_k32": (65_536, 8, 256, 3, 32, "uniform", "arange", True),
+}
+
+
+def _probe_1d_case(name):
+    n, F, B, C, K, leaves, lanes, skewed = PROBE_1D_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    bins = rng.integers(0, B, size=(F, n)).astype(np.uint8)
+    if skewed:
+        bins[rng.random((F, n)) < 0.9] = 17
+    ids = np.arange(K, dtype=np.int32)
+    if lanes == "repeated":
+        ids = np.array([3, 3, 5, 3, -1, 5], np.int32)[:K]
+    elif lanes == "negative":
+        ids[1::4] = -1
+    elif lanes == "big":
+        ids = np.array([0, 5000, 2047, 2048, 70_000, -1], np.int32)[:K]
+    if leaves == "zeros":
+        leaf = np.zeros(n, np.int32)
+    elif leaves == "big":
+        leaf = rng.choice(np.array([0, 1, 5000, 2047, 2048, 70_000, 4999,
+                                    -1], np.int32), size=n)
+    else:
+        lo = -1 if leaves == "negative" else 0
+        leaf = rng.integers(lo, K + (2 if lo else 0), size=n).astype(np.int32)
+    return [torch.from_numpy(a) for a in (bins, leaf, ids)], rng, B, C
+
+
+@pytest.mark.parametrize("name", list(PROBE_1D_CASES))
+def test_probe_1d_kernel(cuda_device, name):
+    """The 1-D probe against the plain version: within the f32 tolerance
+    on normal values and bit-equal on exact-sum values, one launch a
+    call; rows with a negative leaf id match no lane, -1 lanes and lanes
+    that no row names are zero, and a repeated id gives each of its lanes
+    the same sums."""
+    (bins, leaf, ids), rng, B, C = _probe_1d_case(name)
+    n = bins.shape[1]
+    cargs = [bins.to(cuda_device), None, leaf.to(cuda_device),
+             ids.to(cuda_device)]
+    for vals, exact in ((torch.from_numpy(rng.normal(size=(C, n))
+                                          .astype(np.float32)), False),
+                        (_exact_f32_vals(rng, C, n), True)):
+        plain = th.multi_leaf_histogram_plain(bins, vals, leaf, ids,
+                                              num_bins=B)
+        cargs[1] = vals.to(cuda_device)
+        before = hp.hist_probe_1d.launches
+        out = hp.hist_probe_1d(*cargs, num_bins=B).cpu()
+        assert hp.hist_probe_1d.launches == before + 1
+        if exact:
+            assert torch.equal(out, plain)
+        else:
+            tol = 2.0 ** -20 * vals.to(torch.bfloat16).float().abs().sum(1)
+            assert bool(((out - plain).abs() <= tol).all())
+        assert not out[(ids < 0).nonzero().flatten()].any()
+
+
+def test_probe_1d_launches_in_a_row(cuda_device):
+    """Three launches in a row on one stream, each with another number of
+    live lanes and so another layout of the cached scratch: each equals
+    its plain version bit for bit (exact-sum values), so no partial of
+    one launch leaks into the next."""
+    calls = []
+    for name in ("uniform_k32", "lane0_k16", "negative_ids"):
+        (bins, leaf, ids), rng, B, C = _probe_1d_case(name)
+        vals = _exact_f32_vals(rng, C, bins.shape[1])
+        calls.append((th.multi_leaf_histogram_plain(bins, vals, leaf, ids,
+                                                    num_bins=B),
+                      hp.hist_probe_1d(*[a.to(cuda_device) for a in
+                                         (bins, vals, leaf, ids)],
+                                       num_bins=B)))
+    for plain, out in calls:
+        assert torch.equal(out.cpu(), plain)
+
+
+def test_probe_1d_plan(cuda_device):
+    """The passes the kernel picks. At one live lane (the TPU probe's
+    shape: 16 lanes, every row in lane 0) each slot tile gets 32 replicas
+    (adds free of bank conflicts) and a pass takes the features that fit
+    with them; at 32 live lanes a pass takes as many features as fit, one
+    replica each, and every feature block is one more read of the rows."""
+    (bins, leaf, ids), rng, B, C = _probe_1d_case("lane0_k16")
+    vals = torch.zeros((C, bins.shape[1]), device=cuda_device)
+    args = [bins.to(cuda_device), vals, leaf.to(cuda_device),
+            ids.to(cuda_device)]
+    one = hp.probe_1d_plan(*args, num_bins=B)
+    assert one["replicas"] == 32
+    assert one["features_per_pass"] == min(28, one["tiles"] // 32) >= 1
+    assert one["row_reads"] == -(-28 // one["features_per_pass"])
+    args[2] = torch.arange(bins.shape[1], device=cuda_device,
+                           dtype=torch.int32) % 32
+    args[3] = torch.arange(32, device=cuda_device, dtype=torch.int32)
+    many = hp.probe_1d_plan(*args, num_bins=B)
+    assert many["features_per_pass"] == one["tiles"] // 32
+    assert many["replicas"] == 1
+    assert many["row_reads"] == -(-28 // many["features_per_pass"]) > 1
+    assert 1 <= many["ctas_with_rows"] <= many["ctas"]

@@ -5,22 +5,26 @@ histogram in f32 mode (bf16 operands, f32 sums). On the CPU they run
 ``multi_leaf_histogram_plain(int_mode=False)`` and must equal it exactly;
 against the JAX package's ``multi_leaf_histogram_xla`` (as its CPU tests
 run it) they agree within the f32 summation-order bound, 2^-20 x the
-channel's sum of |bf16 values|. ``hist_probe_nibble`` is also held
-against the TPU probe it replaces, ``benchmarks/nibble_probe.py::
-hist_nibble``, run in Pallas interpret mode. Their kernels are held
-against the plain version on the card (tests/test_torch_cuda.py and
+channel's sum of |bf16 values|. Each is also held against the TPU probe
+it replaces, run in Pallas interpret mode: ``hist_probe_nibble`` against
+``benchmarks/nibble_probe.py::hist_nibble``, ``hist_probe_1d`` against
+``benchmarks/kernel_probe.py::hist1d``. Their kernels are held against
+the plain version on the card (tests/test_torch_cuda.py and
 chip_smoke.py).
 """
+import ast
 import functools
 import importlib.util
 import math
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from lightgbm_tpu.ops.pallas_histogram import multi_leaf_histogram_xla
 from lightgbm_tpu_torch.ops import hist_probes as hp
@@ -129,5 +133,61 @@ def test_nibble_matches_tpu_probe(nibble_probe, monkeypatch, nb, B, K, n):
         jnp.asarray(leaf), jnp.asarray(ids), num_bins=B, nb=nb))
     assert ref.shape == got.shape == (K, F, B, C)
     assert not got[[1, K - 2]].any() and not ref[[1, K - 2]].any()
+    vb = args[1].to(torch.bfloat16).float().abs().sum(1).numpy()
+    assert np.all(np.abs(got - ref) <= 2.0 ** -20 * vb)
+
+
+@pytest.fixture(scope="module")
+def kernel_probe():
+    """``_kernel1d`` and ``hist1d`` of ``benchmarks/kernel_probe.py``, the
+    file unchanged: it runs a 1M-row benchmark at import, so only those
+    two function definitions are taken from its syntax tree and run in a
+    namespace of the names they use."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmarks", "kernel_probe.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    tree.body = [node for node in tree.body
+                 if isinstance(node, ast.FunctionDef)
+                 and node.name in ("_kernel1d", "hist1d")]
+    assert len(tree.body) == 2
+    ns = dict(jax=jax, jnp=jnp, pl=pl, pltpu=pltpu, functools=functools)
+    exec(compile(tree, path, "exec"), ns)
+    return ns
+
+
+@pytest.mark.parametrize("F,n,B,K,R", [(3, 4096, 64, 4, 1024),
+                                       (2, 2048, 32, 6, 512),
+                                       (4, 3072, 16, 3, 1024)])
+def test_probe_1d_matches_tpu_probe(kernel_probe, monkeypatch, F, n, B, K,
+                                    R):
+    """The port's 1-D probe (CPU route) against the TPU probe itself,
+    ``hist1d`` with ``pl.pallas_call`` run in interpret mode, within 2^-20
+    x the channel's sum of |bf16 values| (the probe sums bf16 products in
+    f32 on the matrix unit, in another order).
+
+    Every leaf id here is non-negative: the probe's ``lid == sm`` lets a
+    -1 row match a -1 lane, while the port keeps the JAX package's
+    documented rule for kernel A, which the probe probes (a negative leaf
+    id matches no lane, ``lightgbm_tpu/ops/pallas_histogram.py``). So the
+    -1 lane is zero in both. Its grid ``n // rows_per_block`` needs n to
+    be a multiple of the block."""
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    C = 3
+    rng = np.random.default_rng(F * n + B + K)
+    bins = rng.integers(0, B, size=(F, n)).astype(np.uint8)
+    vals = rng.normal(size=(C, n)).astype(np.float32)
+    leaf = rng.integers(0, K + 1, size=n).astype(np.int32)
+    ids = np.arange(K, dtype=np.int32)
+    ids[1] = -1                                 # an inactive lane
+    args = [torch.from_numpy(a) for a in (bins, vals, leaf, ids)]
+    got = hp.hist_probe_1d(*args, num_bins=B).numpy()
+    ref = np.asarray(kernel_probe["hist1d"](
+        jnp.asarray(bins.astype(np.int8)), jnp.asarray(vals),
+        jnp.asarray(leaf), jnp.asarray(ids), num_bins=B,
+        rows_per_block=R))
+    assert ref.shape == got.shape == (K, F, B, C)
+    assert not got[1].any() and not ref[1].any()
     vb = args[1].to(torch.bfloat16).float().abs().sum(1).numpy()
     assert np.all(np.abs(got - ref) <= 2.0 ** -20 * vb)
