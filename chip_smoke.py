@@ -34,7 +34,7 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
    round trip;
 5. full-row training (2M rows, no GOSS, bagging 0.8, feature_fraction
    0.8, quantized gradients) for 16 rounds, once with
-   ``tpu_hist_partition=false`` and once with ``auto``: ``auto`` must
+   ``tpu_hist_partition=false`` and once with ``true``: ``true`` must
    engage the row partition and launch the move kernel every iteration,
    the two model texts must be byte-equal and the partition must scan
    fewer rows; then two more iterations of each (and of the flagship's
@@ -49,17 +49,29 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
    plain version, an int and an f32 ``index_add_`` and the bound; a
    histogram source under ``build/hist_extra/`` (an earlier
    ``histogram.cu``) is built and timed beside kernel A in turns;
-7. the partition sweep: full-row training with the partition off and on
-   in turns (off, on, on, off), 8 rounds a run, at 2M and 8M rows: it/s,
-   rows scanned, model text byte-equal.
+7. the partition sweep: full-row training with the partition off and
+   forced on in turns (off, on, on, off), 8 rounds a run, at 2M, 8M and
+   10M rows: it/s, rows scanned, model text byte-equal (what decides the
+   ``tpu_hist_partition=auto`` policy);
+8. the objectives, on the full-row settings: L2 regression on 2M
+   Higgs-shaped rows (label: the logit plus noise), 10 rounds, partition
+   off and forced on (kernel A in int mode, B′ every iteration with the
+   partition, model text byte-equal, holdout l2 against the label's
+   variance); multiclass softmax with 7 classes at the UCI Covertype shape
+   (581,012 x 54), 10 rounds, so 70 trees (int mode, 9 kernel-A calls a
+   class tree; holdout multi_logloss and multi_error); quantile (alpha
+   0.9) on 1M rows, 5 rounds (f32 mode; the host leaf renewal timed);
+   then every ported objective for 5 rounds on 20k rows, 31 leaves,
+   quantized gradients without stochastic rounding, once on the card and
+   once on the CPU: split lines identical, predictions within 1e-5.
 
 Each training run sets the kernels' launch counts to 0 just before it
 and reads them just after. The last two lines of standard output are the
 per-kernel JSON line and the result line ``{"ok": true, "device":
 {...}}``; any failure exits non-zero before the result line.
 ``--json-out PATH`` also writes the per-kernel record, replay included,
-to PATH; ``--only-probes`` builds the kernels, runs phase 3 and stops
-(no result line). It needs a CUDA device and imports neither JAX nor
+to PATH; ``--only-probes``, ``--only-sweep`` and ``--only-objectives``
+build the kernels, run phase 3, 7 or 8 and stop (no result line). It needs a CUDA device and imports neither JAX nor
 ``lightgbm_tpu``.
 """
 import json
@@ -102,9 +114,10 @@ REPEATS = 20                     # launches of B′ and B held to the plain one
 STEP_KERNELS = ("partition_kernel", "compact_kernel")
 # the reads the training runs may make per iteration (the host's blocking
 # device-to-host copies): partition off, on
-MAX_DTOH = {"false": 28, "auto": 36}
-# partition off / on in turns at these rows, SWEEP_ROUNDS rounds a run
-SWEEP_ROWS = (2_000_000, 8_000_000)
+MAX_DTOH = {"false": 28, "true": 36}
+# partition off / forced on in turns at these rows (10M: bench.py's
+# default size), SWEEP_ROUNDS rounds a run
+SWEEP_ROWS = (2_000_000, 8_000_000, 10_000_000)
 SWEEP_ROUNDS = 8
 # the replay numbers the per-kernel JSON line carries (--json-out PATH
 # writes them all)
@@ -115,8 +128,8 @@ REPLAY_KEYS = ("tree", "kind", "n", "live_lanes", "matched_rows",
 # 32 x S < the padded 2M rows (lightgbm_tpu_torch.ops.partition.span_budgets)
 SPAN_BUDGET = 32_768
 # full-row training: the flagship without GOSS, with bagging and
-# feature_fraction; 2M rows pad to >= 2^20, where tpu_hist_partition=auto
-# engages the leaf-ordered row partition
+# feature_fraction, 2M rows, the leaf-ordered row partition off and forced
+# on (tpu_hist_partition=auto stands down on the card)
 N_FULL = 2_000_000
 FULL_PARAMS = {"objective": "binary", "num_leaves": 127, "max_bin": 255,
                "learning_rate": 0.1, "stochastic_rounding": True,
@@ -124,6 +137,38 @@ FULL_PARAMS = {"objective": "binary", "num_leaves": 127, "max_bin": 255,
                "feature_fraction": 0.8, "tpu_leaf_batch": 32,
                "tpu_hist_mode": "pool", "metric": "auc", "verbosity": -1,
                "device_type": "cuda"}
+# the objectives phase: regression (L2) at 2M Higgs-shaped rows, partition
+# off and forced on; multiclass at the UCI Covertype shape; quantile with
+# its host leaf renewal; then every ported objective on the card and on
+# the CPU. Each on FULL_PARAMS' full-row settings.
+N_REG, REG_ROUNDS = 2_000_000, 10
+N_COVTYPE, N_COVTYPE_HOLDOUT, MC_ROUNDS = 581_012, 58_101, 10
+COVTYPE_SHARES = (0.3646, 0.4876, 0.0615, 0.0047, 0.0163, 0.0299, 0.0353)
+N_QUANTILE, QUANTILE_ROUNDS = 1_000_000, 5
+N_PARITY, N_PARITY_HOLDOUT, PARITY_ROUNDS = 20_000, 2_000, 5
+PARITY_PARAMS = {"num_leaves": 31, "max_bin": 255, "learning_rate": 0.1,
+                 "use_quantized_grad": True, "stochastic_rounding": False,
+                 "tpu_leaf_batch": 8, "verbosity": -1}
+PARITY_OBJECTIVES = {
+    "regression": {"objective": "regression"},
+    "regression_sqrt": {"objective": "regression", "reg_sqrt": True},
+    "regression_l1": {"objective": "regression_l1"},
+    "huber": {"objective": "huber", "alpha": 1.5},
+    "fair": {"objective": "fair", "fair_c": 2.0},
+    "poisson": {"objective": "poisson"},
+    "quantile": {"objective": "quantile", "alpha": 0.8},
+    "mape": {"objective": "mape"},
+    "gamma": {"objective": "gamma"},
+    "tweedie": {"objective": "tweedie", "tweedie_variance_power": 1.4},
+    "binary": {"objective": "binary"},
+    "multiclass": {"objective": "multiclass", "num_class": 3},
+    "multiclassova": {"objective": "multiclassova", "num_class": 3},
+    "cross_entropy": {"objective": "cross_entropy"},
+    "cross_entropy_lambda": {"objective": "cross_entropy_lambda"},
+}
+PARITY_PRED_TOL = 1e-5          # |card - CPU| <= tol * max(1, |CPU|)
+SPLIT_KEYS = ("split_feature", "threshold", "decision_type", "left_child",
+              "right_child", "num_leaves")
 # the probes' shapes (benchmarks/kernel_probe.py:7-12, every row in lane
 # 0, and benchmarks/nibble_probe.py:25-31, ids uniform over the lanes),
 # the 1-D probe also at the nibble probe's: probe, F, n, B, K, C, leaf ids
@@ -142,15 +187,39 @@ PROBE_1D_SPLIT = ("probe1d_no_adds", "probe1d_no_reduce",
                   "probe1d_no_adds_no_reduce")
 
 
-def synth_higgs(n, f, seed=0):
-    """Higgs-like data: the port's copy of bench.py::synth_higgs."""
+def synth_higgs(n, f, seed=0, regression=False):
+    """Higgs-like data: the port's copy of bench.py::synth_higgs; with
+    ``regression`` the label is the logit plus the noise, unthresholded."""
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(n, f)).astype(np.float32)
     w = rng.normal(size=f)
     logit = (X @ w * 0.5 + 0.8 * X[:, 0] * X[:, 1]
              + 0.5 * np.abs(X[:, 2]) - 0.4)
-    y = (logit + rng.normal(scale=1.0, size=n) > 0).astype(np.float64)
+    y = logit + rng.normal(scale=1.0, size=n)
+    if not regression:
+        y = (y > 0).astype(np.float64)
     return X.astype(np.float64), y
+
+
+def synth_covtype(n, seed=0):
+    """Covertype-shaped data (UCI Covertype: 54 features = 10 continuous,
+    4 one-hot wilderness areas, 40 one-hot soil types; 7 cover types at
+    the data set's class shares), synthesized: the label is the argmax of
+    per-class linear scores of the continuous features, per-class effects
+    of the area and soil, the log class shares and Gumbel noise."""
+    rng = np.random.default_rng(seed)
+    K = len(COVTYPE_SHARES)
+    cont = rng.normal(size=(n, 10)).astype(np.float32)
+    wild = rng.integers(0, 4, size=n)
+    soil = rng.integers(0, 40, size=n)
+    X = np.zeros((n, 54), np.float32)
+    X[:, :10] = cont
+    X[np.arange(n), 10 + wild] = 1.0
+    X[np.arange(n), 14 + soil] = 1.0
+    score = (cont @ rng.normal(size=(10, K)) + rng.normal(size=(4, K))[wild]
+             + rng.normal(size=(40, K))[soil] + np.log(COVTYPE_SHARES)
+             + rng.gumbel(size=(n, K)))
+    return X.astype(np.float64), np.argmax(score, axis=1).astype(np.float64)
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -399,11 +468,13 @@ class HistRecorder:
     """Records the multi-leaf histogram calls of chosen trees. It takes the
     place of the name the grow loop calls
     (``learner.serial.multi_leaf_histogram``) and passes every call on to
-    the wrapper, so launch counts are unchanged; while ``tag`` is set it
-    also keeps a copy of the call's inputs."""
+    what stood there before (the wrapper, or another counter in front of
+    it), so launch counts are unchanged; while ``tag`` is set it also
+    keeps a copy of the call's inputs."""
 
     def __init__(self, serial, th):
         self.serial, self.th = serial, th
+        self.prev = serial.multi_leaf_histogram
         self.tag = None
         self.calls = []
         self.impl = None                 # another histogram, for an A/B
@@ -415,11 +486,10 @@ class HistRecorder:
                 t.clone() for t in (bins_t, vals_t, leaf_id, small_ids))))
         if self.impl is not None:
             return self.impl(bins_t, vals_t, leaf_id, small_ids, **kw)
-        return self.th.multi_leaf_histogram(bins_t, vals_t, leaf_id,
-                                            small_ids, **kw)
+        return self.prev(bins_t, vals_t, leaf_id, small_ids, **kw)
 
     def close(self):
-        self.serial.multi_leaf_histogram = self.th.multi_leaf_histogram
+        self.serial.multi_leaf_histogram = self.prev
 
 
 def start_extra_builds(kernels):
@@ -581,6 +651,27 @@ def sass_summary(lib_path, kernels):
     return out
 
 
+def hold_call(th, call, label, rng, exact):
+    """Kernel A against its plain version on one recorded call: int mode
+    bit-equal, f32 mode bit-equal on exact-sum values put in place of the
+    recorded ones (``exact`` caches them by shape)."""
+    bins, vals, leaf, ids = call["args"]
+    kw = dict(num_bins=call["kw"]["num_bins"])
+    got = th.multi_leaf_histogram(*call["args"], int_mode=True, **kw)
+    ref = th.multi_leaf_histogram_plain(*call["args"], int_mode=True, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{label}: int mode max |diff| "
+                             f"{(got - ref).abs().max()}")
+    if vals.shape not in exact:
+        exact[vals.shape] = exact_f32_vals(rng, *vals.shape).to(vals.device)
+    ev = exact[vals.shape]
+    got = th.multi_leaf_histogram(bins, ev, leaf, ids, **kw)
+    ref = th.multi_leaf_histogram_plain(bins, ev, leaf, ids, **kw)
+    torch.cuda.synchronize()
+    check_f32(f"{label} f32", got, ref, ev, True)
+
+
 def replay_phase(dev, th, calls, extras):
     """Kernel A on every recorded call of the training phases: int mode
     bit-equal to the plain version, f32 mode bit-equal on exact-sum
@@ -590,7 +681,7 @@ def replay_phase(dev, th, calls, extras):
     the bf16-rounded values), the wrapper's zero-fill and cast alone,
     and the bound."""
     rng = np.random.default_rng(5)
-    exact_by_n, rows, root_n = {}, [], None
+    exact, rows, root_n = {}, [], None
     for i, call in enumerate(calls):
         bins, vals, leaf, ids = call["args"]
         B = call["kw"]["num_bins"]
@@ -604,21 +695,7 @@ def replay_phase(dev, th, calls, extras):
         r = dict(tree=call["tree"], kind=kind, n=n, K=K,
                  live_lanes=int(live.numel()))
         kw = dict(num_bins=B)
-        got = th.multi_leaf_histogram(*call["args"], int_mode=True, **kw)
-        ref = th.multi_leaf_histogram_plain(*call["args"], int_mode=True,
-                                            **kw)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            raise AssertionError(f"replay {call['tree']} call {i}: int mode "
-                                 f"max |diff| {(got - ref).abs().max()}")
-        if n not in exact_by_n:
-            exact_by_n[n] = exact_f32_vals(rng, C, n).to(dev)
-        ev = exact_by_n[n]
-        got = th.multi_leaf_histogram(bins, ev, leaf, ids, **kw)
-        ref = th.multi_leaf_histogram_plain(bins, ev, leaf, ids, **kw)
-        torch.cuda.synchronize()
-        check_f32(f"replay {call['tree']} call {i} f32", got, ref, ev, True)
-        del got, ref
+        hold_call(th, call, f"replay {call['tree']} call {i}", rng, exact)
         for mode in ("int", "f32"):
             im = mode == "int"
             fns = {"kernel": lambda im=im: th.multi_leaf_histogram(
@@ -1106,7 +1183,7 @@ def trace_rounds(bst, rounds):
 
 
 def full_row_phase(lgt, th, tc, tp, n_pad, rec, extras):
-    """Full-row training at 2M rows, the partition off and on (auto);
+    """Full-row training at 2M rows, the partition off and forced on;
     ``rec`` records the histogram calls of one more tree of each run.
     With an extra histogram named ``parent`` (``build/hist_extra/``),
     the masked run is then repeated with kernel A and with it in turns
@@ -1117,14 +1194,14 @@ def full_row_phase(lgt, th, tc, tp, n_pad, rec, extras):
     ds = lgt.Dataset(X[:N_FULL], label=y[:N_FULL])
     vs = ds.create_valid(Xv, label=yv)
     runs = {}
-    for mode in ("false", "auto"):
+    for mode in ("false", "true"):
         bst = lgt.Booster(params=dict(FULL_PARAMS, tpu_hist_partition=mode),
                           train_set=ds)
         bst.add_valid(vs, "holdout")
         eng = bst.engine
         torch.cuda.synchronize()
         setup_s = time.time() - t0
-        if eng.data.n_pad != n_pad or eng.hist_partition != (mode == "auto"):
+        if eng.data.n_pad != n_pad or eng.hist_partition != (mode == "true"):
             raise AssertionError(f"full-row {mode}: n_pad {eng.data.n_pad}, "
                                  f"partition {eng.hist_partition}")
         if not eng.grow_cfg.int_hist:
@@ -1212,13 +1289,13 @@ def full_row_phase(lgt, th, tc, tp, n_pad, rec, extras):
               f"parent, kernel), {ROUNDS} rounds each, model text "
               f"byte-equal: kernel {ab['kernel']}, parent {ab['parent']}",
               flush=True)
-    off, on = runs["false"], runs["auto"]
+    off, on = runs["false"], runs["true"]
     if off["launches"]["histogram"] <= 0 or on["launches"]["histogram"] <= 0:
         raise AssertionError("full-row path skipped kernel A")
     if off["launches"]["partition"] != 0 or min(
             on["move_launches_per_iter"]) < 1:
         raise AssertionError(f"partition move launches per iteration: "
-                             f"off {off['move_launches_per_iter']}, auto "
+                             f"off {off['move_launches_per_iter']}, on "
                              f"{on['move_launches_per_iter']}")
     if on["text"] != off["text"]:
         raise AssertionError("model text differs with the partition on")
@@ -1234,7 +1311,8 @@ def full_row_phase(lgt, th, tc, tp, n_pad, rec, extras):
 
 def partition_sweep_phase(lgt, tp):
     """The partition's speed policy (``tpu_hist_partition=auto``): full-row
-    training with the partition off and on in turns (off, on, on, off),
+    training with the partition off and forced on
+    (``tpu_hist_partition=true``) in turns (off, on, on, off),
     SWEEP_ROUNDS rounds a run, at each of SWEEP_ROWS rows: it/s over all
     rounds and over all but the first, rows scanned, ``partition_move``
     launches (counted from 0 for each run), model text byte-equal across
@@ -1245,13 +1323,13 @@ def partition_sweep_phase(lgt, tp):
         X, y = synth_higgs(n, N_FEAT, seed=0)
         ds = lgt.Dataset(X, label=y)
         del X
-        runs, texts = {"false": [], "auto": []}, set()
-        for mode in ("false", "auto", "auto", "false"):
+        runs, texts = {"false": [], "true": []}, set()
+        for mode in ("false", "true", "true", "false"):
             bst = lgt.Booster(params=dict(FULL_PARAMS,
                                           tpu_hist_partition=mode),
                               train_set=ds)
             eng = bst.engine
-            if eng.hist_partition != (mode == "auto"):
+            if eng.hist_partition != (mode == "true"):
                 raise AssertionError(f"sweep n={n} {mode}: partition "
                                      f"{eng.hist_partition}")
             tp.partition_move.launches = 0
@@ -1374,6 +1452,316 @@ def train_phase(lgt, th, tc, tp, rec):
     return res
 
 
+class ModeCounter:
+    """Counts the grow loop's kernel-A calls by mode (int / f32). It takes
+    the place of the name the grow loop calls and passes every call on to
+    the wrapper, whose own count is the launch count."""
+
+    def __init__(self, serial, th):
+        self.serial, self.th = serial, th
+        self.prev = serial.multi_leaf_histogram
+        self.calls = {"int": 0, "f32": 0}
+        serial.multi_leaf_histogram = self
+
+    def __call__(self, bins_t, vals_t, leaf_id, small_ids, **kw):
+        self.calls["int" if kw.get("int_mode") else "f32"] += 1
+        return self.prev(bins_t, vals_t, leaf_id, small_ids, **kw)
+
+    def close(self):
+        self.serial.multi_leaf_histogram = self.prev
+
+
+def trace_line(name, tr):
+    print(f"objectives: {name} traced ({TRACE_ROUNDS} more iterations): "
+          f"{tr['wall_ms_per_iter']:.2f} ms wall, device busy "
+          f"{tr['busy_ms_per_iter']} ms, idle share {tr['idle_share']}, "
+          f"device-to-host copies per iteration {tr['dtoh_per_iter']}; top "
+          f"device time (ms per iteration): {tr['top_kernels']}",
+          flush=True)
+
+
+def split_lines(text):
+    return [ln for ln in text.splitlines()
+            if ln.split("=", 1)[0] in SPLIT_KEYS]
+
+
+def timed_rounds(bst, rounds, th, tp):
+    """``rounds`` iterations from counts of 0: seconds and kernel A / B′
+    launches per iteration, and the launches of the whole run."""
+    th.multi_leaf_histogram.launches = 0
+    tp.partition_move.launches = 0
+    secs, hist, move = [], [], []
+    for _ in range(rounds):
+        h0, m0 = th.multi_leaf_histogram.launches, tp.partition_move.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        hist.append(th.multi_leaf_histogram.launches - h0)
+        move.append(tp.partition_move.launches - m0)
+    return dict(secs=secs, it_per_s=rounds / sum(secs),
+                it_per_s_after_first=(rounds - 1) / sum(secs[1:]),
+                hist_per_iter=hist, move_per_iter=move,
+                launches={"histogram": th.multi_leaf_histogram.launches,
+                          "partition": tp.partition_move.launches})
+
+
+def regression_run(lgt, th, tp, modes, smi):
+    """L2 regression on 2M Higgs-shaped rows (the label is the logit plus
+    noise), partition off and forced on: auto-quantized (kernel A in int
+    mode), B′ every iteration with the partition, model text byte-equal,
+    holdout l2 below the label's variance."""
+    X, y = synth_higgs(N_REG + N_HOLDOUT, N_FEAT, seed=1, regression=True)
+    ds = lgt.Dataset(X[:N_REG], label=y[:N_REG])
+    vs = ds.create_valid(X[N_REG:], label=y[N_REG:])
+    var = float(np.var(y[N_REG:]))
+    del X
+    runs, texts = {}, {}
+    for mode in ("false", "true"):
+        bst = lgt.Booster(params=dict(FULL_PARAMS, objective="regression",
+                                      metric="l2", tpu_hist_partition=mode),
+                          train_set=ds)
+        bst.add_valid(vs, "holdout")
+        eng = bst.engine
+        if not (eng.grow_cfg.int_hist and eng.num_class == 1
+                and eng.hist_partition == (mode == "true")):
+            raise AssertionError(f"regression {mode}: int_hist "
+                                 f"{eng.grow_cfg.int_hist}, partition "
+                                 f"{eng.hist_partition}")
+        c0 = dict(modes.calls)
+        r = timed_rounds(bst, REG_ROUNDS, th, tp)
+        r["modes"] = {k: modes.calls[k] - c0[k] for k in c0}
+        [(_, _, l2, _)] = bst.eval_valid()
+        r.update(l2=l2, label_var=var)
+        texts[mode] = bst.model_to_string()
+        r["trace"] = trace_rounds(bst, TRACE_ROUNDS)
+        runs[mode] = r
+        print(f"objectives: regression (L2) n={N_REG} partition={mode}: "
+              f"{REG_ROUNDS} rounds, {r['it_per_s']:.3f} it/s (after the "
+              f"first iteration {r['it_per_s_after_first']:.3f}) on {smi}; "
+              f"holdout l2 {l2:.6f} against the label's variance "
+              f"{var:.6f}; kernel A launches per iteration "
+              f"{r['hist_per_iter']} (by mode {r['modes']}), B′ "
+              f"{r['move_per_iter']}", flush=True)
+        trace_line(f"regression partition={mode}", r["trace"])
+        if not l2 < var:
+            raise AssertionError(f"regression holdout l2 {l2} against the "
+                                 f"label's variance {var}")
+        if r["modes"]["f32"] or min(r["hist_per_iter"]) < 2:
+            raise AssertionError(f"regression kernel A calls {r}")
+    if min(runs["true"]["move_per_iter"]) < 1 \
+            or runs["false"]["launches"]["partition"]:
+        raise AssertionError("regression: B′ launches per iteration off "
+                             f"{runs['false']['move_per_iter']}, on "
+                             f"{runs['true']['move_per_iter']}")
+    if texts["true"] != texts["false"]:
+        raise AssertionError("regression: model text differs with the "
+                             "partition on")
+    return runs
+
+
+def multiclass_run(lgt, th, tp, modes, smi):
+    """Multiclass softmax, 7 classes, at the Covertype shape: 7 trees an
+    iteration, auto-quantized (kernel A in int mode, 9 calls a tree)."""
+    X, y = synth_covtype(N_COVTYPE + N_COVTYPE_HOLDOUT, seed=0)
+    Xt, yt = X[:N_COVTYPE], y[:N_COVTYPE]
+    Xv, yv = X[N_COVTYPE:], y[N_COVTYPE:]
+    K = len(COVTYPE_SHARES)
+    ds = lgt.Dataset(Xt, label=yt)
+    bst = lgt.Booster(params=dict(FULL_PARAMS, objective="multiclass",
+                                  num_class=K, tpu_hist_partition="false",
+                                  metric=["multi_logloss", "multi_error"]),
+                      train_set=ds)
+    bst.add_valid(ds.create_valid(Xv, label=yv), "holdout")
+    eng = bst.engine
+    if not (eng.grow_cfg.int_hist and eng.num_class == K):
+        raise AssertionError(f"multiclass: int_hist {eng.grow_cfg.int_hist}"
+                             f", K {eng.num_class}")
+    c0 = dict(modes.calls)
+    r = timed_rounds(bst, MC_ROUNDS, th, tp)
+    r["modes"] = {k: modes.calls[k] - c0[k] for k in c0}
+    ev = {m: v for _, m, v, _ in bst.eval_valid()}
+    shares = np.bincount(yt.astype(np.int64), minlength=K) / len(yt)
+    prior_logloss = float(-np.sum(shares * np.log(shares)))
+    r.update(multi_logloss=ev["multi_logloss"],
+             multi_error=ev["multi_error"], prior_logloss=prior_logloss,
+             trees=len(eng.models))
+    pred = bst.predict(Xv)
+    print(f"objectives: multiclass K={K} n={N_COVTYPE} x "
+          f"{Xt.shape[1]} (Covertype-shaped): {MC_ROUNDS} rounds, "
+          f"{len(eng.models)} trees, {r['it_per_s']:.3f} it/s (after the "
+          f"first iteration {r['it_per_s_after_first']:.3f}) on {smi}; "
+          f"holdout multi_logloss {ev['multi_logloss']:.6f} (class-share "
+          f"entropy {prior_logloss:.6f}), multi_error "
+          f"{ev['multi_error']:.6f}; kernel A launches per iteration "
+          f"{r['hist_per_iter']} (by mode {r['modes']})", flush=True)
+    r["trace"] = trace_rounds(bst, TRACE_ROUNDS)
+    trace_line("multiclass", r["trace"])
+    # one more iteration, its K class trees' kernel-A calls recorded and
+    # each held against the plain version at this shape (F = 54)
+    rec = HistRecorder(modes.serial, th)
+    rec.tag = "multiclass"
+    bst.update()
+    rec.tag = None
+    rec.close()
+    rng, exact = np.random.default_rng(6), {}
+    for i, call in enumerate(rec.calls):
+        hold_call(th, call, f"multiclass call {i}", rng, exact)
+    shapes = sorted({(*c["args"][0].shape, c["args"][1].shape[0],
+                      c["args"][3].shape[0]) for c in rec.calls})
+    r["held_against_plain"] = dict(calls=len(rec.calls), shapes=shapes)
+    print(f"objectives: multiclass: {len(rec.calls)} kernel-A calls of one "
+          f"iteration (shapes F, n, C, lanes: {shapes}) held against the "
+          f"plain version: int mode and exact-sum f32 mode bit-equal",
+          flush=True)
+    if len(rec.calls) < 2 * K or any(f != Xt.shape[1]
+                                     for f, *_ in shapes):
+        raise AssertionError(f"multiclass recorded calls {shapes}")
+    del rec
+    if r["trees"] != K * MC_ROUNDS or pred.shape != (len(Xv), K) \
+            or not np.allclose(pred.sum(1), 1.0, atol=1e-5):
+        raise AssertionError(f"multiclass: {r['trees']} trees, "
+                             f"predictions {pred.shape}")
+    if not (ev["multi_logloss"] < prior_logloss
+            and ev["multi_error"] < 1.0 - max(shares)):
+        raise AssertionError(f"multiclass holdout {ev}")
+    if r["modes"]["f32"] or min(r["hist_per_iter"]) < 2 * K:
+        raise AssertionError(f"multiclass kernel A calls {r}")
+    return r
+
+
+def quantile_run(lgt, th, tp, modes, smi):
+    """Quantile (alpha 0.9) on 1M Higgs-shaped rows: f32 gradients (kernel
+    A in f32 mode) and the host leaf renewal, timed."""
+    X, y = synth_higgs(N_QUANTILE + N_HOLDOUT, N_FEAT, seed=2,
+                       regression=True)
+    ds = lgt.Dataset(X[:N_QUANTILE], label=y[:N_QUANTILE])
+    Xv, yv = X[N_QUANTILE:], y[N_QUANTILE:]
+    alpha = 0.9
+    bst = lgt.Booster(params=dict(FULL_PARAMS, objective="quantile",
+                                  alpha=alpha, metric="quantile",
+                                  tpu_hist_partition="false"), train_set=ds)
+    bst.add_valid(ds.create_valid(Xv, label=yv), "holdout")
+    eng = bst.engine
+    if eng.grow_cfg.int_hist or not eng.objective.renews:
+        raise AssertionError("quantile: expected f32 gradients and renewal")
+    renew_s = []
+    renew = eng._renew
+
+    def timed_renew(grown):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        renew(grown)
+        torch.cuda.synchronize()
+        renew_s.append(time.perf_counter() - t)
+    eng._renew = timed_renew
+    c0 = dict(modes.calls)
+    r = timed_rounds(bst, QUANTILE_ROUNDS, th, tp)
+    r["modes"] = {k: modes.calls[k] - c0[k] for k in c0}
+    [(_, _, loss, _)] = bst.eval_valid()
+    q = np.quantile(y[:N_QUANTILE], alpha)
+    d = yv - q
+    const_loss = float(np.mean(np.where(d >= 0, alpha * d, (alpha - 1) * d)))
+    r.update(quantile_loss=loss, constant_loss=const_loss,
+             renew_s_per_iter=list(renew_s))
+    print(f"objectives: quantile alpha={alpha} n={N_QUANTILE}: "
+          f"{QUANTILE_ROUNDS} rounds, {r['it_per_s']:.3f} it/s on {smi}; "
+          f"host leaf renewal seconds per iteration "
+          f"{[round(s, 4) for s in renew_s]}; holdout quantile loss "
+          f"{loss:.6f} (the train label's {alpha} quantile as a constant: "
+          f"{const_loss:.6f}); kernel A launches per iteration "
+          f"{r['hist_per_iter']} (by mode {r['modes']})", flush=True)
+    r["trace"] = trace_rounds(bst, TRACE_ROUNDS)
+    r["trace"]["renew_ms_per_iter"] = 1e3 * sum(
+        renew_s[QUANTILE_ROUNDS:]) / TRACE_ROUNDS
+    trace_line("quantile", r["trace"])
+    print(f"objectives: quantile traced: host leaf renewal "
+          f"{r['trace']['renew_ms_per_iter']:.2f} ms per iteration",
+          flush=True)
+    renew_s = renew_s[:QUANTILE_ROUNDS]
+    if not loss < const_loss or len(renew_s) != QUANTILE_ROUNDS:
+        raise AssertionError(f"quantile: holdout loss {loss}, constant "
+                             f"{const_loss}, renewals {len(renew_s)}")
+    if r["modes"]["int"] or min(r["hist_per_iter"]) < 2:
+        raise AssertionError(f"quantile kernel A calls {r}")
+    return r
+
+
+def parity_data(params, seed=0):
+    """20k + 2k rows x 28 features with a label that suits the objective."""
+    rng = np.random.default_rng(seed)
+    n = N_PARITY + N_PARITY_HOLDOUT
+    X = rng.normal(size=(n, N_FEAT))
+    lin = X @ rng.normal(size=N_FEAT) * 0.3 + 0.8 * X[:, 0] * X[:, 1]
+    obj = params["objective"]
+    if obj in ("poisson", "tweedie"):
+        y = rng.poisson(np.exp(0.15 * lin)).astype(np.float64)
+    elif obj == "gamma":
+        y = rng.gamma(4.0, np.exp(0.15 * lin) / 4.0)
+    elif obj.startswith("cross_entropy"):
+        y = 1.0 / (1.0 + np.exp(-(lin + rng.normal(size=n))))
+    elif obj == "binary":
+        y = (lin + rng.normal(size=n) > 0).astype(np.float64)
+    elif obj.startswith("multiclass"):
+        K = params["num_class"]
+        y = np.argmax(X[:, :K] + rng.normal(scale=0.7, size=(n, K)),
+                      axis=1).astype(np.float64)
+    else:
+        y = 2.0 * lin + rng.normal(size=n)
+    return X[:N_PARITY], y[:N_PARITY], X[N_PARITY:]
+
+
+def parity_run(lgt, th, smi):
+    """Every ported objective, 5 rounds on 20k rows, on the card and on
+    the CPU (the kernels' plain versions): split lines identical,
+    predictions within PARITY_PRED_TOL."""
+    out = {}
+    th.multi_leaf_histogram.launches = 0
+    for name, obj in PARITY_OBJECTIVES.items():
+        X, y, Xv = parity_data(obj)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            t = time.perf_counter()
+            bst = lgt.train(dict(PARITY_PARAMS, device_type=dev, **obj),
+                            lgt.Dataset(X, label=y),
+                            num_boost_round=PARITY_ROUNDS)
+            res[dev] = (split_lines(bst.model_to_string()),
+                        bst.predict(Xv), time.perf_counter() - t)
+        lines_equal = res["cuda"][0] == res["cpu"][0]
+        diff = float(np.max(np.abs(res["cuda"][1] - res["cpu"][1])
+                            / np.maximum(1.0, np.abs(res["cpu"][1]))))
+        out[name] = dict(split_lines_equal=lines_equal, max_rel_diff=diff,
+                         seconds={d: r[2] for d, r in res.items()})
+        print(f"objectives: card against CPU, {name}: split lines "
+              f"{'identical' if lines_equal else 'DIFFER'}, predictions "
+              f"max |diff| / max(1, |CPU|) {diff:.3g}", flush=True)
+        if not lines_equal or not diff <= PARITY_PRED_TOL:
+            raise AssertionError(f"card against CPU, {name}: split lines "
+                                 f"equal {lines_equal}, max diff {diff}")
+    out["histogram_launches"] = th.multi_leaf_histogram.launches
+    if out["histogram_launches"] <= 0:
+        raise AssertionError("card against CPU: kernel A never launched")
+    return out
+
+
+def objectives_phase(lgt, th, tp, serial, smi):
+    """The regression, multiclass and quantile paths at full width, then
+    every ported objective on the card against the CPU."""
+    t0 = time.time()
+    modes = ModeCounter(serial, th)
+    try:
+        res = {"regression": regression_run(lgt, th, tp, modes, smi),
+               "multiclass": multiclass_run(lgt, th, tp, modes, smi),
+               "quantile": quantile_run(lgt, th, tp, modes, smi),
+               "card_vs_cpu": parity_run(lgt, th, smi)}
+    finally:
+        modes.close()
+    res["seconds"] = time.time() - t0
+    print(f"objectives phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main(argv):
     json_out = argv[argv.index("--json-out") + 1] if "--json-out" in argv \
         else None
@@ -1436,6 +1824,12 @@ def main(argv):
     if "--only-probes" in argv:
         probe_phase(dev, hp, th, nibble_extras, nibble_usage, probe_extras)
         return 0
+    if "--only-sweep" in argv:
+        partition_sweep_phase(lgt, tp)
+        return 0
+    if "--only-objectives" in argv:
+        objectives_phase(lgt, th, tp, serial, smi)
+        return 0
     n_full_pad = pad_rows(N_FULL, Config({}).tpu_rows_per_block)
     hist = histogram_phase(dev, th, tp, n_full_pad)
     comp = compaction_phase(dev, tc, parent)
@@ -1449,14 +1843,20 @@ def main(argv):
     replay = replay_phase(dev, th, rec.calls, extras)
     del rec
     sweep = partition_sweep_phase(lgt, tp)
+    objs = objectives_phase(lgt, th, tp, serial, smi)
 
     h, c, p = hist["masked"], comp["goss"], part["half"]
     fl = {m: r["launches"] for m, r in full.items()}
 
     def path_launches(key):
+        reg = objs["regression"]
         return {"goss_flagship": train["launches"][key],
                 "full_row_masked": fl["false"][key],
-                "full_row_partition": fl["auto"][key]}
+                "full_row_partition": fl["true"][key],
+                "regression_masked": reg["false"]["launches"].get(key, 0),
+                "regression_partition": reg["true"]["launches"].get(key, 0),
+                "multiclass": objs["multiclass"]["launches"].get(key, 0),
+                "quantile": objs["quantile"]["launches"].get(key, 0)}
 
     def probe_entry(name, tag, source_line):
         pr = probes[name]
@@ -1518,7 +1918,7 @@ def main(argv):
              source="lightgbm_tpu_torch/csrc/partition.cu",
              core="lightgbm_tpu_torch/csrc/stable_partition.cuh",
              replaces="lightgbm_tpu/ops/partition.py:129",
-             launches=fl["auto"]["partition"],
+             launches=fl["true"]["partition"],
              launches_by_path=path_launches("partition"),
              max_abs_err=p["max_abs_err"], ms=p["ms"],
              earlier_step_ms=p["earlier_ms"],
@@ -1532,7 +1932,7 @@ def main(argv):
                     "benchmarks/nibble_probe.py:83"),
     ], "train": dict({k: v for k, v in train.items()
                       if k not in ("trees_leaves",)}, full_row=full,
-                     partition_sweep=sweep)}
+                     partition_sweep=sweep, objectives=objs)}
     for v in (kernels_line["train"]["masked_it_per_s"],
               kernels_line["train"]["goss_it_per_s"]):
         if not math.isfinite(v):

@@ -7,8 +7,8 @@ hot loops run hand-written CUDA kernels on an NVIDIA Hopper card
 imports torch and numpy, never JAX or ``lightgbm_tpu``.
 """
 from .basic import Booster, Dataset, LightGBMError
-from .callback import log_evaluation
+from .callback import early_stopping, log_evaluation, record_evaluation
 from .engine import train
 
 __all__ = ["Booster", "Dataset", "LightGBMError", "train",
-           "log_evaluation"]
+           "early_stopping", "log_evaluation", "record_evaluation"]

@@ -26,6 +26,7 @@ class Booster:
                  model_str: Optional[str] = None, noise=None):
         self.params = dict(params or {})
         self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
         self._engine: Optional[GBDT] = None
         self._from_model = None
         if train_set is not None:
@@ -80,16 +81,24 @@ class Booster:
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False
                 ) -> np.ndarray:
+        """Predictions ``[n]``, or ``[n, K]`` for multiclass. With
+        ``num_iteration`` None, the best iteration (early stopping's, or
+        every iteration trained) when there is one."""
+        if num_iteration is None:
+            num_iteration = (self.best_iteration
+                             if self.best_iteration > 0 else -1)
         if self._from_model is not None:
             return self._from_model.predict(
                 data, raw_score=raw_score, start_iteration=start_iteration,
-                num_iteration=num_iteration or -1, pred_leaf=pred_leaf)
-        if start_iteration != 0 or (num_iteration or -1) > 0 or pred_leaf:
-            # iteration slices and leaf indices: the host model
+                num_iteration=num_iteration, pred_leaf=pred_leaf)
+        if pred_leaf:
+            # leaf indices: the host model
             return self._to_host_model().predict(
                 data, raw_score=raw_score, start_iteration=start_iteration,
-                num_iteration=num_iteration or -1, pred_leaf=pred_leaf)
-        return self.engine.predict(data, raw_score=raw_score)
+                num_iteration=num_iteration, pred_leaf=pred_leaf)
+        return self.engine.predict(data, raw_score=raw_score,
+                                   start_iteration=start_iteration,
+                                   num_iteration=num_iteration)
 
     def _to_host_model(self):
         from .io.model_text import HostModel

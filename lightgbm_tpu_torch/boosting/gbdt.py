@@ -4,14 +4,17 @@ Reference: ``GBDT::TrainOneIter`` (src/boosting/gbdt.cpp, UNVERIFIED —
 empty mount, see SURVEY.md banner): gradients from the objective →
 (GOSS subset) → train one tree → shrinkage → update train + valid scores.
 
-The port of ``lightgbm_tpu/boosting/gbdt.py`` for the main paths: binary
-objective, serial learner, full-row steps (with bagging, per-tree
-feature_fraction and the leaf-ordered row partition of
+The port of ``lightgbm_tpu/boosting/gbdt.py`` for the main paths: every
+objective but the ranking ones, with K trees an iteration for multiclass
+(one per class, all on the same row and feature masks, the scores an
+``[n_pad, K]`` tensor), serial learner, full-row steps (with bagging,
+per-tree feature_fraction and the leaf-ordered row partition of
 ``tpu_hist_partition``) and GOSS steps (masked, or with the compacted
 histogram buffer of ``tpu_goss_compact``), exact or quantized gradients
-with stochastic rounding. Scores and the binned matrices stay on the
-device across iterations; each iteration copies the finished tree's flat
-arrays to the host. ``gradients``, ``quantize`` and ``goss_masks`` are
+with stochastic rounding, and the host leaf renewal of L1, quantile and
+MAPE. Scores and the binned matrices stay on the device across
+iterations; each iteration copies the finished trees' flat arrays to the
+host. ``gradients``, ``quantize`` and ``goss_masks`` are
 pure functions that take their uniform draws as tensors; the draws come
 from a noise object (``utils/random.py``). Bagging and feature masks are
 drawn on the host from ``numpy.random.RandomState(bagging_seed /
@@ -37,12 +40,6 @@ from ..ops.predict import forest_predict_binned, tree_predict_binned
 from ..tree import Tree
 from ..utils import log
 from ..utils.random import TorchNoise
-
-# once-per-process marker for the tpu_hist_partition=auto stand-down
-# warning (the JAX package's etiquette: warn once where the partition
-# plausibly applied, log at info level otherwise)
-_WARNED_PART_AUTO: List[bool] = []
-
 
 def _ceil_to(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -123,11 +120,16 @@ def quantize(gk_m: torch.Tensor, hk_m: torch.Tensor,
     """Gradient quantization (use_quantized_grad; reference:
     cuda_gradient_discretizer.cu): grad/hess become integer levels with
     stochastic rounding offsets ``noise = (ng, nh)`` (None = nearest).
-    Returns (grad levels, hess levels, per-channel scale ``[3]``)."""
+    Returns (grad levels, hess levels, per-channel scale ``[3]``). The
+    level counts divide as tensors: CUDA divides a tensor by a Python
+    number as a product with its reciprocal, which at 15 levels is not
+    the quotient the CPU and the JAX package compute."""
     gmax = torch.max(torch.abs(gk_m))
     hmax = torch.max(hk_m)
-    scale_g = torch.clamp(gmax / glevels, min=1e-30)
-    scale_h = torch.clamp(hmax / hlevels, min=1e-30)
+    scale_g = torch.clamp(gmax / torch.as_tensor(
+        glevels, dtype=gmax.dtype, device=gmax.device), min=1e-30)
+    scale_h = torch.clamp(hmax / torch.as_tensor(
+        hlevels, dtype=hmax.dtype, device=hmax.device), min=1e-30)
     ng, nh = noise if noise is not None else (0.0, 0.0)
     gq = torch.round(gk_m / scale_g + ng)
     hq = torch.round(hk_m / scale_h + nh)
@@ -142,11 +144,19 @@ def quantize(gk_m: torch.Tensor, hk_m: torch.Tensor,
 def goss_masks(g: torch.Tensor, h: torch.Tensor, valid_mask: torch.Tensor,
                u: torch.Tensor, k_top: int, k_rand: int, top_rate: float,
                other_rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """GOSS (goss.hpp): keep the top ``k_top`` rows by |g*h| (ties by row
-    index), sample exactly ``min(k_rand, rest)`` of the rest — the
-    smallest uniform draws ``u`` (ties by row index) — and amplify the
-    sampled rest by (1-a)/b. Returns (mask_gh, mask_count)."""
-    metric = torch.abs(g * h) * valid_mask
+    """GOSS (goss.hpp): keep the top ``k_top`` rows by |g*h| (summed over
+    the classes of ``[n, K]`` gradients; ties by row index), sample
+    exactly ``min(k_rand, rest)`` of the rest — the smallest uniform
+    draws ``u`` (ties by row index) — and amplify the sampled rest by
+    (1-a)/b. Returns (mask_gh, mask_count)."""
+    metric = torch.abs(g * h)
+    if metric.dim() == 2:
+        # class after class, as XLA reduces the short class axis
+        per_class = metric
+        metric = per_class[:, 0]
+        for k in range(1, per_class.shape[1]):
+            metric = metric + per_class[:, k]
+    metric = metric * valid_mask
     n_local = metric.shape[0]
     n_valid = torch.sum(valid_mask)
     k_rest = torch.clamp(n_valid - k_top, min=1.0)
@@ -207,9 +217,10 @@ class GBDT:
                      "f32")
         self.objective: Objective = create_objective(config)
         md = self.train_set.metadata
-        self.objective.prepare(md.label, md.weight)
+        if hasattr(self.objective, "prepare") and md.label is not None:
+            self.objective.prepare(md.label, md.weight)
         self.metrics = metrics_for_config(config)
-        self.num_class = 1
+        self.num_class = config.num_tree_per_iteration
         self.average_output = False
         self.models: List[Tree] = []
         self.iter_ = 0
@@ -234,8 +245,10 @@ class GBDT:
                                             transposed=True)
         self.hist_partition = self._engage_partition(F)
         label = md.label
-        self.init_scores = np.zeros(1, dtype=np.float64)
-        if label is not None:
+        # BoostFromAverage for one tree an iteration; per-class init
+        # scores stay 0 (the JAX package's GBDT.__init__)
+        self.init_scores = np.zeros(self.num_class, dtype=np.float64)
+        if label is not None and self.num_class == 1:
             self.init_scores[0] = self.objective.init_score(label, md.weight)
         self.score = self._init_score(self.data)
         self.valid_data: List[DeviceData] = []
@@ -247,8 +260,9 @@ class GBDT:
         c = config
         self.use_quant = bool(c.use_quantized_grad)
         qbins = max(2, int(c.num_grad_quant_bins))
-        self.glevels = max(qbins // 2, 1)
-        self.hlevels = max(qbins - 1, 1)
+        # the level counts as device tensors (quantize divides by them)
+        self.glevels = torch.tensor(float(max(qbins // 2, 1)), device=dev)
+        self.hlevels = torch.tensor(float(max(qbins - 1, 1)), device=dev)
         self.use_sr = bool(c.stochastic_rounding)
         self.grow_cfg = GrowConfig(
             num_leaves=c.num_leaves, max_depth=c.max_depth,
@@ -276,12 +290,16 @@ class GBDT:
         self.goss_n_sub = compaction_out_cols(
             int(np.ceil(self.data.n_pad * frac)) + 8192,
             self.compact_rpb, self.rows_per_block)
+        # renewing objectives keep the masked GOSS path, as the JAX
+        # package does
         self.use_goss_compact = (
             bool(c.tpu_goss_compact) and c.data_sample_strategy == "goss"
+            and not self.objective.renews
             and frac < 1.0 and self.compact_rpb >= 256
             # the buffer (sampled rows + write slack) must shrink the scan
             and self.goss_n_sub < self.data.n_pad)
-        self._stack_cache: Optional[Tuple[int, Dict, int]] = None
+        self._stack_cache: Optional[Tuple[Tuple[int, int, int], Dict,
+                                          int]] = None
 
         self._rng_feature = np.random.RandomState(c.feature_fraction_seed)
         self._rng_bagging = np.random.RandomState(c.bagging_seed)
@@ -292,29 +310,17 @@ class GBDT:
 
     def _engage_partition(self, F: int) -> bool:
         """``tpu_hist_partition``: "true" engages the leaf-ordered row
-        partition on any device, "false" never, "auto" where
-        ``capabilities.hist_partition_auto`` says it pays (the CUDA
-        kernels in use, pool mode, no GOSS, >= 2^20 padded rows)."""
+        partition on any device, "false" and "auto" never (the JAX
+        package's auto engages it on its Pallas path at 2^20 padded rows;
+        on the card it measured slower at every size,
+        ``capabilities.PARTITION_STAND_DOWN``)."""
         c = self.config
         mode = str(c.tpu_hist_partition)
-        if mode == "true":
-            engage = F > 0
-        elif mode == "false":
-            engage = False
-        else:
-            ok, reason = capabilities.hist_partition_auto(
-                c, self.device.type == "cuda", self.data.n_pad)
-            engage = F > 0 and ok
-            if F > 0 and not ok and reason is not None:
-                msg = (f"tpu_hist_partition=auto: staying on masked "
-                       f"histograms ({reason}); set "
-                       f"tpu_hist_partition=true to force")
-                big = self.data.n_pad >= capabilities.HIST_PARTITION_MIN_ROWS
-                if big and not _WARNED_PART_AUTO:
-                    _WARNED_PART_AUTO.append(True)
-                    log.warning(msg)
-                else:
-                    log.info(msg)
+        engage = mode == "true" and F > 0
+        if mode == "auto" and self.device.type == "cuda":
+            log.info(f"tpu_hist_partition=auto: staying on masked "
+                     f"histograms ({capabilities.PARTITION_STAND_DOWN}); "
+                     f"set tpu_hist_partition=true to force")
         if engage:
             log.info("leaf-ordered row partition enabled: histograms scan "
                      "only the elected children's row spans")
@@ -322,10 +328,18 @@ class GBDT:
 
     # ------------------------------------------------------------------
     def _init_score(self, dd: DeviceData) -> torch.Tensor:
-        """Device ``[n_pad]`` init scores + the dataset's init_score."""
-        s0 = np.full(dd.n_pad, np.float32(self.init_scores[0]), np.float32)
+        """Device ``[n_pad, K]`` init scores + the dataset's init_score
+        (n values, or n * K read row by row as the JAX package reads
+        them)."""
+        K = self.num_class
+        s0 = np.tile(self.init_scores.astype(np.float32), (dd.n_pad, 1))
         if dd.init_score is not None:
-            s0[:dd.n] += np.asarray(dd.init_score, np.float32)
+            init = np.asarray(dd.init_score)
+            if init.size not in (dd.n, dd.n * K):
+                log.fatal(f"Length of init_score ({init.size}) does not "
+                          f"match number of data ({dd.n}) or number of "
+                          f"data * num_class ({dd.n * K})")
+            s0[:dd.n] += init.reshape(dd.n, -1).astype(np.float32)
         return torch.from_numpy(s0).to(dd.bins.device)
 
     def add_valid(self, ds: Dataset, name: str) -> None:
@@ -333,26 +347,25 @@ class GBDT:
                                      transposed=False)
         score = self._init_score(dd)
         if self.models:
-            stacked, depth = self._stacked_forest()
-            raw, _ = forest_predict_binned(stacked, dd.bins,
-                                           self.feat_num_bin,
-                                           self.feat_has_nan, depth)
-            score = score + raw
+            score = score + self._forest_raw(dd.bins, 0, len(self.models))
         self.valid_data.append(dd)
         self.valid_scores.append(score)
         self.valid_names.append(name)
 
     # ------------------------------------------------------------------
     def gradients(self, score: torch.Tensor):
+        """(grad, hess) at ``score`` ``[n_pad, K]``: ``[n_pad]`` each for
+        one tree an iteration, ``[n_pad, K]`` for multiclass."""
         d = self.data
-        return self.objective.get_gradients(score, d.label, d.weight)
+        s = score[:, 0] if self.num_class == 1 else score
+        return self.objective.get_gradients(s, d.label, d.weight)
 
-    def _vals(self, gk_m, hk_m, mask_count, n_rows):
-        """Histogram value rows ``[n, 3]`` + channel scale (None unless
-        quantized)."""
+    def _vals(self, gk_m, hk_m, mask_count, n_rows, k):
+        """Histogram value rows ``[n, 3]`` of class ``k``'s tree +
+        channel scale (None unless quantized)."""
         if not self.use_quant:
             return torch.stack([gk_m, hk_m, mask_count], dim=1), None
-        draws = (self.noise.quant_uniforms(self.iter_, n_rows)
+        draws = (self.noise.quant_uniforms(self.iter_, n_rows, k)
                  if self.use_sr else None)
         gq, hq, scale = quantize(gk_m, hk_m, mask_count, self.glevels,
                                  self.hlevels, draws)
@@ -411,36 +424,51 @@ class GBDT:
     def _step(self, goss: bool, allowed: torch.Tensor):
         """Masked full-row step: every row is scanned (or, under the
         partition, every row stays in the partitioned source), GOSS or
-        bagging (or the padding) enters as per-row weights."""
+        bagging (or the padding) enters as per-row weights. Returns the
+        K class trees' ``(tree, leaf_id)``."""
         d = self.data
+        K = self.num_class
         g, h = self.gradients(self.score)
         if goss:
             mask_gh, mask_count = self._goss(g, h)
         else:
             mask_gh, mask_count = self._bagging_masks()
-        vals, scale = self._vals(g * mask_gh, h * mask_gh, mask_count,
-                                 d.n_pad)
-        return grow_tree(d.bins_t, vals, self.feat_num_bin,
-                         self.feat_has_nan, allowed, self.grow_cfg,
-                         chan_scale=scale)
+        out = []
+        for k in range(K):
+            gk = g if K == 1 else g[:, k]
+            hk = h if K == 1 else h[:, k]
+            vals, scale = self._vals(gk * mask_gh, hk * mask_gh,
+                                     mask_count, d.n_pad, k)
+            out.append(grow_tree(d.bins_t, vals, self.feat_num_bin,
+                                 self.feat_has_nan, allowed, self.grow_cfg,
+                                 chan_scale=scale))
+        return out
 
     def _step_goss_compact(self, allowed: torch.Tensor):
         """GOSS with histogram-only compaction: the sampled rows move into
-        a fixed-size buffer (``compact_by_mask``) that the histograms scan;
-        the full-row leaf ids and score update stay as in the masked
-        step."""
+        a fixed-size buffer (``compact_by_mask``, one launch for all K
+        classes' gradients) that the histograms scan; the full-row leaf
+        ids and score update stay as in the masked step."""
         d = self.data
+        K = self.num_class
         g, h = self.gradients(self.score)
         mask_gh, mask_count = self._goss(g, h)
-        vals_all = torch.stack([g, h, mask_gh, mask_count])    # [4, n]
+        g2 = g[None] if K == 1 else g.T
+        h2 = h[None] if K == 1 else h.T
+        vals_all = torch.cat([g2, h2, mask_gh[None], mask_count[None]]) \
+            .contiguous()                                     # [2K+2, n]
         bins_t_c, vc = compact_by_mask(d.bins_t, vals_all, mask_count > 0,
                                        self.goss_n_sub)
-        gk, hk = vc[0] * vc[2], vc[1] * vc[2]
-        vals_c, scale = self._vals(gk, hk, vc[3], self.goss_n_sub)
         cfg = dataclasses.replace(self.grow_cfg, hist_compact=True)
-        return grow_tree(d.bins_t, vals_c, self.feat_num_bin,
-                         self.feat_has_nan, allowed, cfg,
-                         chan_scale=scale, compact_bins_t=bins_t_c)
+        out = []
+        for k in range(K):
+            gk, hk = vc[k] * vc[2 * K], vc[K + k] * vc[2 * K]
+            vals_c, scale = self._vals(gk, hk, vc[2 * K + 1],
+                                       self.goss_n_sub, k)
+            out.append(grow_tree(d.bins_t, vals_c, self.feat_num_bin,
+                                 self.feat_has_nan, allowed, cfg,
+                                 chan_scale=scale, compact_bins_t=bins_t_c))
+        return out
 
     def goss_active(self) -> bool:
         """GOSS starts after 1/learning_rate iterations (goss.hpp keeps
@@ -449,42 +477,65 @@ class GBDT:
         return (c.data_sample_strategy == "goss"
                 and self.iter_ >= int(1.0 / max(c.learning_rate, 1e-6)))
 
+    def _renew(self, grown) -> None:
+        """Leaf renewal (L1 / quantile / MAPE, RenewTreeOutput): each
+        class tree's leaf values become the per-leaf percentiles of the
+        residuals at the score BEFORE this iteration's update (host
+        numpy, the JAX package's ``_leaf_percentile_renewal``)."""
+        n = self.data.n
+        md = self.train_set.metadata
+        old = self.score[:n].cpu().numpy()
+        for k, (tree, leaf_id) in enumerate(grown):
+            renewed = self.objective.renew_tree_output(
+                old[:, k], md.label, md.weight,
+                leaf_id[:n].cpu().numpy(), self.config.num_leaves)
+            tree["leaf_value"] = torch.from_numpy(
+                renewed.astype(np.float32)).to(self.device)
+
     def train_one_iter(self) -> None:
-        """One boosting iteration."""
+        """One boosting iteration: K class trees."""
         lr = float(self.config.learning_rate)
         allowed = self._feature_mask()
         if self.goss_active() and self.use_goss_compact:
-            tree, leaf_id = self._step_goss_compact(allowed)
+            grown = self._step_goss_compact(allowed)
         else:
-            tree, leaf_id = self._step(self.goss_active(), allowed)
-        self.score = self.score + tree["leaf_value"][leaf_id.to(
-            torch.int64)] * lr
-        # rows the histogram scans touched (a host float32): n per scan on
-        # the masked path, the elected children's padded spans under the
-        # partition
-        self.hist_rows_scanned += float(tree.pop("hist_rows"))
-        host = {k: v.cpu().numpy() for k, v in tree.items()}
-        t = Tree.from_device(host, lr, self.train_set.bin_mappers,
-                             self.train_set.used_features)
-        if self.valid_scores:
-            depth = int(t.leaf_depths().max())
-            for i, dd in enumerate(self.valid_data):
-                vals, _ = tree_predict_binned(tree, dd.bins,
-                                              self.feat_num_bin,
-                                              self.feat_has_nan, depth)
-                self.valid_scores[i] = self.valid_scores[i] + vals * lr
-        self.models.append(t)
+            grown = self._step(self.goss_active(), allowed)
+        if self.objective.renews:
+            self._renew(grown)
+        self.score = torch.stack(
+            [self.score[:, k] + tree["leaf_value"][leaf_id.to(torch.int64)]
+             * lr for k, (tree, leaf_id) in enumerate(grown)], dim=1)
+        trees = []
+        for tree, _ in grown:
+            # rows the histogram scans touched (a host float32): n per
+            # scan on the masked path, the elected children's padded
+            # spans under the partition
+            self.hist_rows_scanned += float(tree.pop("hist_rows"))
+            host = {k: v.cpu().numpy() for k, v in tree.items()}
+            trees.append(Tree.from_device(host, lr,
+                                          self.train_set.bin_mappers,
+                                          self.train_set.used_features))
+        for i, dd in enumerate(self.valid_data):
+            self.valid_scores[i] = torch.stack(
+                [self.valid_scores[i][:, k] + tree_predict_binned(
+                    tree, dd.bins, self.feat_num_bin, self.feat_has_nan,
+                    int(t.leaf_depths().max()))[0] * lr
+                 for k, ((tree, _), t) in enumerate(zip(grown, trees))],
+                dim=1)
+        self.models.extend(trees)
         self._stack_cache = None
         self.iter_ += 1
 
     # ------------------------------------------------------------------
-    def _stacked_forest(self) -> Tuple[Dict[str, torch.Tensor], int]:
-        """All trees as padded device arrays + the forest's depth; cached
-        until the model list changes."""
-        if self._stack_cache is not None \
-                and self._stack_cache[0] == len(self.models):
+    def _stacked_forest(self, start: int, count: int
+                        ) -> Tuple[Dict[str, torch.Tensor], int]:
+        """Trees ``[start, start + count)`` as padded device arrays (with
+        each tree's class, ``t % K``) + their depth; the last slice is
+        cached until the model list changes."""
+        key = (len(self.models), start, count)
+        if self._stack_cache is not None and self._stack_cache[0] == key:
             return self._stack_cache[1], self._stack_cache[2]
-        trees = self.models
+        trees = self.models[start:start + count]
         L = max(max(t.num_leaves for t in trees), 1)
         Ln = max(L - 1, 1)
         dev = self.device
@@ -509,8 +560,18 @@ class GBDT:
                                  L, np.float32),
         }
         depth = max(int(t.leaf_depths().max()) for t in trees)
-        self._stack_cache = (len(self.models), stacked, depth)
+        self._stack_cache = (key, stacked, depth)
         return stacked, depth
+
+    def _forest_raw(self, bins: torch.Tensor, start: int, count: int
+                    ) -> torch.Tensor:
+        """Raw scores ``[n, K]`` of trees ``[start, start + count)`` on
+        binned rows, summed per class in tree order."""
+        stacked, depth = self._stacked_forest(start, count)
+        raw, _ = forest_predict_binned(stacked, bins, self.feat_num_bin,
+                                       self.feat_has_nan, depth,
+                                       self.num_class, start)
+        return raw
 
     def eval_set(self, which: int) -> List[Tuple[str, str, float, bool]]:
         """Evaluate metrics: which=-1 train, else valid index."""
@@ -526,27 +587,37 @@ class GBDT:
         weight = dd.weight.cpu().numpy()[:dd.n] if dd.weight is not None \
             else None
         return eval_metric_rows(self.objective, self.metrics, name, raw,
-                                label, weight)
+                                label, weight, self.num_class)
 
-    def predict(self, X, raw_score: bool = False) -> np.ndarray:
-        """Predict on raw features (binned through the train mappers)."""
+    def predict(self, X, raw_score: bool = False, start_iteration: int = 0,
+                num_iteration: int = -1) -> np.ndarray:
+        """Predict on raw features (binned through the train mappers):
+        ``[n]`` for one tree an iteration, ``[n, K]`` for multiclass.
+        Iterations ``[start_iteration, start_iteration + num_iteration)``
+        (all from ``start_iteration`` when ``num_iteration <= 0``); the
+        init scores count only from iteration 0."""
         X = Dataset._to_matrix(X)
         if X.shape[1] != self.train_set.num_total_features:
             log.fatal(f"The number of features in data ({X.shape[1]}) is "
                       f"not the same as it was in training data "
                       f"({self.train_set.num_total_features})")
-        n = X.shape[0]
-        if self.models:
+        n, K = X.shape[0], self.num_class
+        total = len(self.models) // K
+        if num_iteration <= 0:
+            num_iteration = total - start_iteration
+        num_iteration = min(num_iteration, total - start_iteration)
+        if num_iteration > 0:
             bins = torch.from_numpy(self.train_set.bin_rows(X)).to(
                 self.device)
-            stacked, depth = self._stacked_forest()
-            raw_dev, _ = forest_predict_binned(stacked, bins,
-                                               self.feat_num_bin,
-                                               self.feat_has_nan, depth)
-            raw = raw_dev.cpu().numpy().astype(np.float64)
+            raw = self._forest_raw(bins, start_iteration * K,
+                                   num_iteration * K)
+            raw = raw.cpu().numpy().astype(np.float64)
         else:
-            raw = np.zeros(n, np.float64)
-        raw = raw + self.init_scores[0]
+            raw = np.zeros((n, K), np.float64)
+        if start_iteration == 0:
+            raw = raw + self.init_scores[None, :]
+        if K == 1:
+            raw = raw[:, 0]
         if raw_score:
             return raw
         return self.objective.convert_output(

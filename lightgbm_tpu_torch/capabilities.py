@@ -1,18 +1,19 @@
 """The port's capability table: which features this package trains.
 
 ``lightgbm_tpu/capabilities.py`` gates features per boosting engine; this
-package has one engine so far -- binary gradient boosting with the serial
-learner and pool-mode histograms, trained on full rows (with bagging,
-per-tree feature_fraction and the leaf-ordered row partition) or under
-GOSS (with the compacted histogram buffer), on exact or quantized
-gradients. Every other feature of the JAX package is FATAL here with a
-message that names it, so an unported parameter fails loudly instead of
-silently training something else.
+package has one engine so far -- gradient boosting with the serial learner
+and pool-mode histograms for every objective but the ranking ones (K trees
+an iteration for multiclass), trained on full rows (with bagging, per-tree
+feature_fraction and the leaf-ordered row partition) or under GOSS (with
+the compacted histogram buffer), on exact or quantized gradients, with
+every metric but the ranking ones and early stopping. Every other feature
+of the JAX package is FATAL here with a message that names it, so an
+unported parameter fails loudly instead of silently training something
+else.
 """
 from __future__ import annotations
 
-from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
-                    Tuple)
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 from .utils import log
 
@@ -22,16 +23,26 @@ MULTI_TREE_OBJECTIVES = ("multiclass", "multiclassova")
 
 # tpu_auto_quantize flips use_quantized_grad on for these objectives at
 # this many rows or more (lightgbm_tpu/capabilities.py's policy)
-AUTO_QUANTIZE_OBJECTIVES = ("binary",)
+AUTO_QUANTIZE_OBJECTIVES = ("binary", "regression", "multiclass",
+                            "multiclassova", "cross_entropy")
 AUTO_QUANT_MIN_ROWS = 500_000
 
-# tpu_hist_partition=auto engages the leaf-ordered row partition only at
-# this many padded rows or more (the JAX package's threshold; not yet
-# re-decided from measurements on the GPU)
-HIST_PARTITION_MIN_ROWS = 1 << 20
+# why tpu_hist_partition=auto stands down on the card: in the in-turns
+# sweep of full-row training on an H100 (off, on, on, off; three calls)
+# the partition won 2 of 6 pairs at 2M rows, 1 of 6 at 8M and none at 10M
+# (PERF.md section 6), so it won every pair at no size
+PARTITION_STAND_DOWN = ("measured slower than masked histograms on the "
+                        "H100 at 2M, 8M and 10M rows, PERF.md section 6")
 
-# metrics this package evaluates
-PORTED_METRICS = ("auc", "binary_logloss", "binary")
+# metrics this package evaluates (canonical names; metric/__init__.py
+# holds their aliases)
+PORTED_METRICS = ("l1", "l2", "rmse", "quantile", "huber", "fair",
+                  "poisson", "mape", "gamma", "gamma_deviance", "tweedie",
+                  "binary_logloss", "binary_error", "auc",
+                  "average_precision", "auc_mu", "multi_logloss",
+                  "multi_error", "cross_entropy", "kullback_leibler")
+# objectives of the JAX package this package does not train yet
+UNPORTED_OBJECTIVES = ("lambdarank", "rank_xendcg", "custom")
 
 # JAX-package knobs (``tpu_*`` and friends in config._PARAMS) this package
 # honours; any other one set to a non-default value is FATAL
@@ -59,15 +70,19 @@ def _unported_knobs(c) -> List[str]:
     return out
 
 
+def _ranking_metric(name: str) -> bool:
+    from .metric import UNPORTED_METRICS
+    name = name.strip().lower()
+    return name.split("@", 1)[0] in UNPORTED_METRICS
+
+
 # every entry is FATAL: the port trains none of these yet
 UNPORTED: Dict[str, Capability] = {
     "objective": Capability(
-        "objectives other than binary",
-        lambda c: str(c.objective) != "binary",
-        {"objective": "regression"}),
-    "multiclass": Capability(
-        "multiclass", lambda c: c.num_tree_per_iteration > 1,
-        {"objective": "multiclass", "num_class": 3}),
+        "the ranking objectives (lambdarank, rank_xendcg) and the custom "
+        "objective",
+        lambda c: str(c.objective) in UNPORTED_OBJECTIVES,
+        {"objective": "lambdarank"}),
     "boosting": Capability(
         "boosting other than gbdt (dart, rf)",
         lambda c: c.boosting != "gbdt", {"boosting": "dart"}),
@@ -123,18 +138,10 @@ UNPORTED: Dict[str, Capability] = {
     "hist_rebuild": Capability(
         "tpu_hist_mode=rebuild", lambda c: c.tpu_hist_mode != "pool",
         {"tpu_hist_mode": "rebuild"}),
-    "early_stopping": Capability(
-        "early stopping", lambda c: c.early_stopping_round > 0,
-        {"early_stopping_round": 5}),
     "metric": Capability(
-        f"metrics other than {', '.join(PORTED_METRICS)}",
-        lambda c: any(m.strip().lower() not in PORTED_METRICS + (
-            "", "na", "null", "none", "custom") for m in c.metric),
-        {"metric": "l2"}),
-    "training_metric": Capability(
-        "is_provide_training_metric",
-        lambda c: bool(c.is_provide_training_metric),
-        {"is_provide_training_metric": True}),
+        "the ranking metrics (ndcg, map)",
+        lambda c: any(_ranking_metric(m) for m in c.metric),
+        {"metric": "ndcg"}),
     "snapshots": Capability(
         "snapshot_freq", lambda c: c.snapshot_freq > 0, {"snapshot_freq": 5}),
     "jax_knobs": Capability(
@@ -142,24 +149,6 @@ UNPORTED: Dict[str, Capability] = {
         lambda c: bool(_unported_knobs(c)),
         {"tpu_double_precision_hist": True}),
 }
-
-
-def hist_partition_auto(config, cuda_kernels: bool,
-                        n_pad: int) -> Tuple[bool, Optional[str]]:
-    """The ``tpu_hist_partition=auto`` policy (the JAX package's, with
-    "the CUDA kernels are in use" where it has "the Pallas kernels are in
-    use"): engage the leaf-ordered row partition only on the pool path
-    over a large un-compacted source. Returns ``(engage,
-    stand_down_reason)``; the reason is None when engaging or when the
-    path was never plausible (no CUDA kernels, or rebuild mode)."""
-    if not cuda_kernels or str(config.tpu_hist_mode) != "pool":
-        return False, None
-    if str(config.data_sample_strategy) == "goss":
-        return False, "GOSS already compacts the scan"
-    if n_pad < HIST_PARTITION_MIN_ROWS:
-        return False, ("dataset too small to amortize the "
-                       "repartition move")
-    return True, None
 
 
 def unported_features(config) -> List[str]:

@@ -38,11 +38,13 @@ def device_data_from_jax(bins: np.ndarray, bins_t: Optional[np.ndarray],
     return DeviceData(b, bt, int(n), f32(label), f32(weight))
 
 
-def forest_from_jax(tree_arrays: List[Dict[str, np.ndarray]],
+def forest_from_jax(iterations: List[Dict[str, np.ndarray]],
                     shrinkage: float, bin_mappers,
                     used_features: List[int]) -> List[Tree]:
-    """The port's trees from the JAX engine's per-tree arrays (each dict
-    as ``GBDT._fetch_tree_arrays`` returns for one tree, class axis
-    removed), shrunk by ``shrinkage`` like the engine's own."""
-    return [Tree.from_device(a, shrinkage, bin_mappers, used_features)
-            for a in tree_arrays]
+    """The port's trees from the JAX engine's arrays, one dict per
+    iteration as ``GBDT._fetch_tree_arrays`` returns it (a leading class
+    axis of K trees), appended in class order as the engine appends them
+    and shrunk by ``shrinkage`` like the engine's own."""
+    return [Tree.from_device({k: v[c] for k, v in it.items()}, shrinkage,
+                             bin_mappers, used_features)
+            for it in iterations for c in range(len(it["num_leaves"]))]

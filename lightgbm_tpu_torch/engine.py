@@ -3,8 +3,10 @@
 Reference: python-package/lightgbm/engine.py (UNVERIFIED — empty mount,
 see SURVEY.md banner). The port of ``lightgbm_tpu/engine.py::train``: the
 callback loop around ``Booster.update`` with valid-set registration and
-per-iteration evaluation. Early stopping, checkpoints, continuation and
-cross-validation are not ported yet (capabilities.py refuses them).
+per-iteration evaluation of the valid sets (and of the train set under
+``is_provide_training_metric``), and early stopping
+(``early_stopping_round``). Checkpoints, continuation and cross-validation
+are not ported yet (capabilities.py refuses them).
 """
 from __future__ import annotations
 
@@ -51,23 +53,36 @@ def train(params: Dict[str, Any], train_set: Dataset,
             if vs is train_set:
                 continue  # the train set is evaluated via eval_train
             booster.add_valid(vs, name)
-    callbacks = sorted(callbacks or [],
-                       key=lambda cb: getattr(cb, "order", 0))
+    callbacks = list(callbacks or [])
+    if cfg.early_stopping_round > 0:
+        callbacks.append(callback_mod.early_stopping(
+            cfg.early_stopping_round, cfg.first_metric_only,
+            verbose=cfg.verbosity >= 1,
+            min_delta=cfg.early_stopping_min_delta))
+    callbacks.sort(key=lambda cb: getattr(cb, "order", 0))
     train_as_valid = bool(valid_sets) and any(vs is train_set
                                               for vs in valid_sets)
     for it in range(num_boost_round):
         booster.update()
         eval_results = []
-        if ((booster.engine.valid_data or train_as_valid)
+        if ((booster.engine.valid_data or train_as_valid
+             or cfg.is_provide_training_metric)
                 and (it + 1) % cfg.metric_freq == 0):
-            if train_as_valid:
+            if cfg.is_provide_training_metric or train_as_valid:
                 eval_results.extend(booster.eval_train())
             eval_results.extend(booster.eval_valid())
         env = callback_mod.CallbackEnv(
             model=booster, params=params, iteration=it, begin_iteration=0,
             end_iteration=num_boost_round,
             evaluation_result_list=eval_results)
-        for cb in callbacks:
-            cb(env)
-    booster.best_iteration = booster.current_iteration()
+        try:
+            for cb in callbacks:
+                cb(env)
+        except callback_mod.EarlyStopException as e:
+            booster.best_iteration = e.best_iteration + 1
+            for name, metric, value, _ in (e.best_score or []):
+                booster.best_score.setdefault(name, {})[metric] = value
+            break
+    if booster.best_iteration < 0:
+        booster.best_iteration = booster.current_iteration()
     return booster

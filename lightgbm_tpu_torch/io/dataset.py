@@ -174,9 +174,12 @@ class Dataset:
             if v is not None and len(v) != n:
                 log.fatal(f"Length of {fname} ({len(v)}) does not "
                           f"match number of data ({n})")
-        if md.init_score is not None and len(md.init_score) != n:
-            log.fatal(f"Length of init_score ({len(md.init_score)}) does "
-                      f"not match number of data ({n})")
+        if md.init_score is not None:
+            m = len(md.init_score)
+            # num_data, or num_data * num_class for multiclass
+            if m != n and (n == 0 or m % n != 0):
+                log.fatal(f"Length of init_score ({m}) does not match "
+                          f"number of data ({n})")
 
     def feature_num_bins(self) -> np.ndarray:
         """num_bin per used feature."""

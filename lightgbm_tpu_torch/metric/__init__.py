@@ -4,9 +4,10 @@ Reference: src/metric/*.hpp + ``Metric::CreateMetric`` (src/metric/metric
 .cpp, UNVERIFIED — empty mount, see SURVEY.md banner). Metrics consume the
 prediction-space output (after the objective's convert_output).
 
-The port of ``lightgbm_tpu/metric/__init__.py`` for the binary metrics:
-host-side NumPy, run once per ``metric_freq`` iterations on already
-computed scores, so they are not on the hot path.
+The port of ``lightgbm_tpu/metric/__init__.py`` without the ranking metrics
+(``ndcg``, ``map``): host-side NumPy, copied from the JAX package, run once
+per ``metric_freq`` iterations on already computed scores, so they are not
+on the hot path.
 """
 from __future__ import annotations
 
@@ -39,6 +40,80 @@ class Metric:
         return float(np.sum(values * weight) / np.sum(weight))
 
 
+def _simple(name: str, higher: bool, fn) -> type:
+    class _M(Metric):
+        def eval(self, pred, label, weight):
+            return [(name, self._avg(fn(self, pred, label), weight))]
+    _M.name = name
+    _M.higher_better = higher
+    _M.__name__ = f"Metric_{name}"
+    return _M
+
+
+L2Metric = _simple("l2", False, lambda s, p, y: (p - y) ** 2)
+RMSEMetric = _simple("rmse", False, lambda s, p, y: (p - y) ** 2)
+L1Metric = _simple("l1", False, lambda s, p, y: np.abs(p - y))
+MAPEMetric = _simple("mape", False,
+                     lambda s, p, y: np.abs(p - y) / np.maximum(np.abs(y), 1))
+PoissonMetric = _simple("poisson", False,
+                        lambda s, p, y: p - y * np.log(np.maximum(p, EPS)))
+GammaMetric = _simple(
+    "gamma", False,
+    lambda s, p, y: y / np.maximum(p, EPS)
+    + np.log(np.maximum(p, EPS)) - 1 - np.log(np.maximum(y, EPS)))
+GammaDevianceMetric = _simple(
+    "gamma_deviance", False,
+    lambda s, p, y: 2.0 * (np.log(np.maximum(p, EPS) / np.maximum(y, EPS))
+                           + y / np.maximum(p, EPS) - 1))
+
+
+class RMSEMetricSqrt(RMSEMetric):
+    def eval(self, pred, label, weight):
+        [(n, v)] = super().eval(pred, label, weight)
+        return [("rmse", float(np.sqrt(v)))]
+
+
+class QuantileMetric(Metric):
+    name = "quantile"
+
+    def eval(self, pred, label, weight):
+        a = self.config.alpha
+        d = label - pred
+        loss = np.where(d >= 0, a * d, (a - 1.0) * d)
+        return [("quantile", self._avg(loss, weight))]
+
+
+class HuberMetric(Metric):
+    name = "huber"
+
+    def eval(self, pred, label, weight):
+        a = self.config.alpha
+        d = np.abs(pred - label)
+        loss = np.where(d <= a, 0.5 * d * d, a * (d - 0.5 * a))
+        return [("huber", self._avg(loss, weight))]
+
+
+class FairMetric(Metric):
+    name = "fair"
+
+    def eval(self, pred, label, weight):
+        c = self.config.fair_c
+        d = np.abs(pred - label)
+        loss = c * c * (d / c - np.log1p(d / c))
+        return [("fair", self._avg(loss, weight))]
+
+
+class TweedieMetric(Metric):
+    name = "tweedie"
+
+    def eval(self, pred, label, weight):
+        rho = self.config.tweedie_variance_power
+        p = np.maximum(pred, EPS)
+        loss = (-label * np.power(p, 1 - rho) / (1 - rho)
+                + np.power(p, 2 - rho) / (2 - rho))
+        return [("tweedie", self._avg(loss, weight))]
+
+
 class BinaryLoglossMetric(Metric):
     name = "binary_logloss"
 
@@ -47,6 +122,15 @@ class BinaryLoglossMetric(Metric):
         y = (label > 0).astype(np.float64)
         loss = -(y * np.log(p) + (1 - y) * np.log(1 - p))
         return [("binary_logloss", self._avg(loss, weight))]
+
+
+class BinaryErrorMetric(Metric):
+    name = "binary_error"
+
+    def eval(self, pred, label, weight):
+        y = (label > 0).astype(np.float64)
+        err = ((pred > 0.5) != (y > 0)).astype(np.float64)
+        return [("binary_error", self._avg(err, weight))]
 
 
 class AUCMetric(Metric):
@@ -74,14 +158,151 @@ class AUCMetric(Metric):
         return [("auc", auc)]
 
 
-_REGISTRY = {"binary_logloss": BinaryLoglossMetric,
-             "binary": BinaryLoglossMetric, "auc": AUCMetric}
-_DEFAULT_FOR_OBJECTIVE = {"binary": "binary_logloss"}
+class AUCMuMetric(Metric):
+    """Multiclass AUC-mu (Kleiman & Page; reference:
+    src/metric/multiclass_metric.hpp AucMuMetric, UNVERIFIED): mean over
+    class pairs (i, j) of the binary AUC separating class-i rows from
+    class-j rows, scored by pred[:, i] - pred[:, j]; optional
+    ``auc_mu_weights`` flat (num_class x num_class) weight matrix."""
+
+    name = "auc_mu"
+    higher_better = True
+
+    def eval(self, pred, label, weight):
+        pred = np.asarray(pred)
+        if pred.ndim != 2:
+            return [("auc_mu", 0.5)]
+        K = pred.shape[1]
+        label = np.asarray(label).astype(np.int64)
+        wm = None
+        aw = getattr(self.config, "auc_mu_weights", None)
+        if aw:
+            wm = np.asarray(aw, dtype=np.float64).reshape(K, K)
+        auc_bin = AUCMetric(self.config)
+        total, wsum = 0.0, 0.0
+        for i in range(K):
+            for j in range(i + 1, K):
+                m = (label == i) | (label == j)
+                if not m.any() or (label[m] == i).all() \
+                        or (label[m] == j).all():
+                    continue
+                s = pred[m, i] - pred[m, j]
+                y = (label[m] == i).astype(np.float64)
+                w = None if weight is None else weight[m]
+                a = auc_bin.eval(s, y, w)[0][1]
+                pw = wm[i, j] if wm is not None else 1.0
+                total += pw * a
+                wsum += pw
+        return [("auc_mu", total / wsum if wsum else 0.5)]
+
+
+class AveragePrecisionMetric(Metric):
+    name = "average_precision"
+    higher_better = True
+
+    def eval(self, pred, label, weight):
+        y = (label > 0).astype(np.float64)
+        w = np.ones_like(y) if weight is None else weight
+        order = np.argsort(-pred, kind="mergesort")
+        y, w = y[order], w[order]
+        tp = np.cumsum(w * y)
+        total = np.cumsum(w)
+        total_pos = tp[-1]
+        if total_pos == 0:
+            return [("average_precision", 0.0)]
+        precision = tp / np.maximum(total, EPS)
+        recall_delta = np.diff(np.concatenate([[0.0], tp])) / total_pos
+        return [("average_precision", float(np.sum(precision * recall_delta)))]
+
+
+class MultiLoglossMetric(Metric):
+    name = "multi_logloss"
+
+    def eval(self, pred, label, weight):
+        # pred: [n, K] probabilities
+        idx = label.astype(np.int64)
+        p = np.clip(pred[np.arange(len(idx)), idx], EPS, 1.0)
+        return [("multi_logloss", self._avg(-np.log(p), weight))]
+
+
+class MultiErrorMetric(Metric):
+    name = "multi_error"
+
+    def eval(self, pred, label, weight):
+        k = self.config.multi_error_top_k
+        idx = label.astype(np.int64)
+        if k <= 1:
+            err = (np.argmax(pred, axis=1) != idx).astype(np.float64)
+        else:
+            true_p = pred[np.arange(len(idx)), idx][:, None]
+            rank = np.sum(pred > true_p, axis=1)
+            err = (rank >= k).astype(np.float64)
+        return [("multi_error", self._avg(err, weight))]
+
+
+class CrossEntropyMetric(Metric):
+    name = "cross_entropy"
+
+    def eval(self, pred, label, weight):
+        p = np.clip(pred, EPS, 1 - EPS)
+        loss = -(label * np.log(p) + (1 - label) * np.log(1 - p))
+        return [("cross_entropy", self._avg(loss, weight))]
+
+
+class KLDivMetric(Metric):
+    name = "kullback_leibler"
+
+    def eval(self, pred, label, weight):
+        p = np.clip(pred, EPS, 1 - EPS)
+        y = np.clip(label, EPS, 1 - EPS)
+        loss = (y * np.log(y / p) + (1 - y) * np.log((1 - y) / (1 - p)))
+        return [("kullback_leibler", self._avg(loss, weight))]
+
+
+_REGISTRY = {
+    "l2": L2Metric, "mse": L2Metric, "mean_squared_error": L2Metric,
+    "regression": L2Metric, "regression_l2": L2Metric,
+    "rmse": RMSEMetricSqrt, "root_mean_squared_error": RMSEMetricSqrt,
+    "l2_root": RMSEMetricSqrt,
+    "l1": L1Metric, "mae": L1Metric, "mean_absolute_error": L1Metric,
+    "regression_l1": L1Metric,
+    "mape": MAPEMetric, "mean_absolute_percentage_error": MAPEMetric,
+    "quantile": QuantileMetric, "huber": HuberMetric, "fair": FairMetric,
+    "poisson": PoissonMetric, "gamma": GammaMetric,
+    "gamma_deviance": GammaDevianceMetric, "tweedie": TweedieMetric,
+    "binary_logloss": BinaryLoglossMetric, "binary": BinaryLoglossMetric,
+    "binary_error": BinaryErrorMetric,
+    "auc": AUCMetric, "average_precision": AveragePrecisionMetric,
+    "auc_mu": AUCMuMetric,
+    "multi_logloss": MultiLoglossMetric, "multiclass": MultiLoglossMetric,
+    "softmax": MultiLoglossMetric, "multiclassova": MultiLoglossMetric,
+    "multi_error": MultiErrorMetric,
+    "cross_entropy": CrossEntropyMetric, "xentropy": CrossEntropyMetric,
+    "cross_entropy_lambda": CrossEntropyMetric,
+    "xentlambda": CrossEntropyMetric,
+    "kullback_leibler": KLDivMetric, "kldiv": KLDivMetric,
+}
+
+# the ranking metrics (names and aliases of the JAX package's registry)
+# this package does not evaluate yet
+UNPORTED_METRICS = ("ndcg", "lambdarank", "rank_xendcg", "xendcg", "map",
+                    "mean_average_precision")
+_NO_METRIC = ("", "na", "null", "none", "custom")
+
+_DEFAULT_FOR_OBJECTIVE = {
+    "regression": "l2", "regression_l1": "l1", "huber": "huber",
+    "fair": "fair", "poisson": "poisson", "quantile": "quantile",
+    "mape": "mape", "gamma": "gamma", "tweedie": "tweedie",
+    "binary": "binary_logloss",
+    "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
+    "cross_entropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
+}
 
 
 def create_metric(name: str, config) -> Optional[Metric]:
     name = name.strip().lower()
-    if name in ("", "na", "null", "none", "custom"):
+    if name in _NO_METRIC:
         return None
     if name not in _REGISTRY:
         log.fatal(f"metric {name!r} is not supported by lightgbm_tpu_torch "
@@ -103,12 +324,13 @@ def metrics_for_config(config) -> List[Metric]:
     return out
 
 
-def eval_metric_rows(objective, metrics, name, raw, label, weight):
-    """Convert a raw-score vector through the objective (in float32, as
-    the JAX package does) and run every metric: ``(data_name,
+def eval_metric_rows(objective, metrics, name, raw, label, weight,
+                     num_class: int = 1):
+    """Convert a raw-score matrix or vector through the objective (in
+    float32, as the JAX package does) and run every metric: ``(data_name,
     metric_name, value, higher_better)`` tuples."""
     raw = np.asarray(raw, np.float64)
-    if raw.ndim == 2:
+    if num_class == 1 and raw.ndim == 2:
         raw = raw[:, 0]
     pred = objective.convert_output(
         torch.from_numpy(raw.astype(np.float32))).numpy()

@@ -6,20 +6,45 @@ SURVEY.md banner). Each objective supplies ``GetGradients(score) ->
 (grad, hess)``, an optional boost-from-average init score, and the
 score→output transform used at predict time.
 
-The port of ``lightgbm_tpu/objective/__init__.py`` for the binary
-objective: pure element-wise torch functions on the data's device. The
-sigmoid is ``torch.sigmoid``, which differs from XLA's by an ULP on a small
-share of inputs, so gradients agree with the JAX package to within an ULP
-rather than bit for bit.
+The port of ``lightgbm_tpu/objective/__init__.py`` without the ranking
+objectives: pure element-wise torch functions on the data's device, written
+operation for operation as the JAX package writes them. The transcendental
+functions of the objectives beyond binary (``exp``, ``sigmoid``,
+``softmax``, ``log1p``) run in float64 and round to float32: the card's
+and the CPU's float32 versions differ in the last bits, and so would
+their quantized gradients and trees; rounded from float64 they agree. XLA's
+float32 versions differ from both by ULPs, so gradients agree with the JAX
+package to within ULPs rather than bit for bit (binary keeps its float32
+``torch.sigmoid``). The multiclass objectives take a ``[n, K]`` score;
+the others take ``[n]``. The boost-from-average init scores and the leaf
+renewal of L1, quantile and MAPE (``renew_tree_output``) are host numpy,
+copied from the JAX package.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils import log
+
+
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp(x.double()).to(x.dtype)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x.double()).to(x.dtype)
+
+
+def _softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.softmax(x.double(), dim=dim).to(x.dtype)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log1p(exp(x))`` as the JAX package writes it, in float64."""
+    return torch.log1p(torch.exp(x.double())).to(x.dtype)
 
 
 class Objective:
@@ -44,10 +69,38 @@ class Objective:
         """Raw score -> prediction-space transform (identity by default)."""
         return score
 
+    def renew_tree_output(self, *_args, **_kw):
+        """Hook for leaf re-fitting (L1/quantile/MAPE median renewal)."""
+        return None
+
+    @property
+    def renews(self) -> bool:
+        """True when this objective re-fits leaf outputs on the host."""
+        return (type(self).renew_tree_output
+                is not Objective.renew_tree_output)
+
     def _apply_weight(self, grad, hess, weight):
         if weight is None:
             return grad, hess
         return grad * weight, hess * weight
+
+    # -- boost_from_average as a mean statistic (the reference's
+    # Network::GlobalSyncUpByMean decomposition) -------------------------
+    def init_mean_stats(self, label, weight):
+        """``(weighted_sum, weight_total)`` such that
+        ``init_from_mean(weighted_sum / weight_total)`` reproduces
+        ``init_score``. None when the init score is not a mean statistic
+        (the median/percentile family)."""
+        return None
+
+    def init_from_mean(self, mean: float) -> float:
+        raise NotImplementedError
+
+    @staticmethod
+    def _mean_stats_of(v: np.ndarray, weight) -> Tuple[float, float]:
+        if weight is None:
+            return float(np.sum(v)), float(len(v))
+        return float(np.sum(v * weight)), float(np.sum(weight))
 
     @staticmethod
     def _wavg(v: np.ndarray, weight: Optional[np.ndarray]) -> float:
@@ -56,9 +109,185 @@ class Objective:
         return float(np.sum(v * weight) / np.sum(weight))
 
 
-class Binary(Objective):
-    """Binary logloss (src/objective/binary_objective.hpp, UNVERIFIED)."""
+# ---------------------------------------------------------------------------
+# Regression family (src/objective/regression_objective.hpp, UNVERIFIED)
+# ---------------------------------------------------------------------------
+class RegressionL2(Objective):
+    name = "regression"
 
+    def __init__(self, config):
+        super().__init__(config)
+        # reg_sqrt: fit sign(y)*sqrt(|y|) instead of y; predictions
+        # convert back as sign(s)*s^2
+        self.reg_sqrt = bool(getattr(config, "reg_sqrt", False))
+
+    def init_score(self, label, weight):
+        if not self.config.boost_from_average:
+            return 0.0
+        if self.reg_sqrt:
+            label = np.sign(label) * np.sqrt(np.abs(label))
+        return self._wavg(label, weight)
+
+    def get_gradients(self, score, label, weight):
+        if self.reg_sqrt:
+            label = torch.sign(label) * torch.sqrt(torch.abs(label))
+        grad = score - label
+        hess = torch.ones_like(score)
+        return self._apply_weight(grad, hess, weight)
+
+    def convert_output(self, score):
+        if self.reg_sqrt:
+            return torch.sign(score) * score * score
+        return score
+
+    def init_mean_stats(self, label, weight):
+        if self.reg_sqrt:
+            label = np.sign(label) * np.sqrt(np.abs(label))
+        return self._mean_stats_of(label, weight)
+
+    def init_from_mean(self, mean):
+        return float(mean)
+
+
+class RegressionL1(Objective):
+    name = "regression_l1"
+
+    def init_score(self, label, weight):
+        if not self.config.boost_from_average:
+            return 0.0
+        return _weighted_percentile_np(label, weight, 0.5)
+
+    def get_gradients(self, score, label, weight):
+        grad = torch.sign(score - label)
+        hess = torch.ones_like(score)
+        return self._apply_weight(grad, hess, weight)
+
+    def renew_tree_output(self, score, label, weight, leaf_id, num_leaves):
+        return _leaf_percentile_renewal(score, label, weight, leaf_id,
+                                        num_leaves, 0.5)
+
+
+class Huber(Objective):
+    name = "huber"
+
+    def get_gradients(self, score, label, weight):
+        alpha = self.config.alpha
+        r = score - label
+        grad = torch.clamp(r, -alpha, alpha)
+        hess = torch.ones_like(score)
+        return self._apply_weight(grad, hess, weight)
+
+
+class Fair(Objective):
+    name = "fair"
+
+    def get_gradients(self, score, label, weight):
+        c = self.config.fair_c
+        r = score - label
+        denom = torch.abs(r) + c
+        grad = c * r / denom
+        # one division, as the JAX package divides (a Python number over
+        # a tensor is a product with the tensor's reciprocal in torch)
+        hess = torch.full_like(denom, c * c) / (denom * denom)
+        return self._apply_weight(grad, hess, weight)
+
+
+class _LogMean(Objective):
+    """Objectives whose init score is the log of the weighted label mean
+    and whose output is ``exp(score)``."""
+
+    def init_score(self, label, weight):
+        if not self.config.boost_from_average:
+            return 0.0
+        return float(np.log(max(self._wavg(label, weight), 1e-9)))
+
+    def convert_output(self, score):
+        return _exp(score)
+
+    def init_mean_stats(self, label, weight):
+        return self._mean_stats_of(np.asarray(label, np.float64), weight)
+
+    def init_from_mean(self, mean):
+        return float(np.log(max(mean, 1e-9)))
+
+
+class Poisson(_LogMean):
+    name = "poisson"
+
+    def get_gradients(self, score, label, weight):
+        grad = _exp(score) - label
+        hess = _exp(score + self.config.poisson_max_delta_step)
+        return self._apply_weight(grad, hess, weight)
+
+
+class Quantile(Objective):
+    name = "quantile"
+
+    def init_score(self, label, weight):
+        if not self.config.boost_from_average:
+            return 0.0
+        return _weighted_percentile_np(label, weight, self.config.alpha)
+
+    def get_gradients(self, score, label, weight):
+        alpha = self.config.alpha
+        grad = torch.where(label - score > 0, -alpha, 1.0 - alpha) \
+            .to(score.dtype)
+        hess = torch.ones_like(score)
+        return self._apply_weight(grad, hess, weight)
+
+    def renew_tree_output(self, score, label, weight, leaf_id, num_leaves):
+        return _leaf_percentile_renewal(score, label, weight, leaf_id,
+                                        num_leaves, self.config.alpha)
+
+
+class MAPE(Objective):
+    name = "mape"
+
+    def init_score(self, label, weight):
+        if not self.config.boost_from_average:
+            return 0.0
+        return _weighted_percentile_np(label, weight, 0.5)
+
+    def get_gradients(self, score, label, weight):
+        scale = 1.0 / torch.clamp(torch.abs(label), min=1.0)
+        grad = torch.sign(score - label) * scale
+        hess = scale
+        return self._apply_weight(grad, hess, weight)
+
+    def renew_tree_output(self, score, label, weight, leaf_id, num_leaves):
+        # weighted median with the 1/|label| scaling folded into weights
+        scale = 1.0 / np.maximum(np.abs(np.asarray(label)), 1.0)
+        w = scale if weight is None else scale * np.asarray(weight)
+        return _leaf_percentile_renewal(score, label, w, leaf_id,
+                                        num_leaves, 0.5)
+
+
+class Gamma(_LogMean):
+    name = "gamma"
+
+    def get_gradients(self, score, label, weight):
+        e = _exp(-score)
+        grad = 1.0 - label * e
+        hess = label * e
+        return self._apply_weight(grad, hess, weight)
+
+
+class Tweedie(_LogMean):
+    name = "tweedie"
+
+    def get_gradients(self, score, label, weight):
+        rho = self.config.tweedie_variance_power
+        e1 = _exp((1.0 - rho) * score)
+        e2 = _exp((2.0 - rho) * score)
+        grad = -label * e1 + e2
+        hess = -label * (1.0 - rho) * e1 + (2.0 - rho) * e2
+        return self._apply_weight(grad, hess, weight)
+
+
+# ---------------------------------------------------------------------------
+# Binary classification (src/objective/binary_objective.hpp, UNVERIFIED)
+# ---------------------------------------------------------------------------
+class Binary(Objective):
     name = "binary"
 
     def __init__(self, config):
@@ -105,10 +334,166 @@ class Binary(Objective):
     def convert_output(self, score):
         return torch.sigmoid(self.sigmoid * score)
 
+    def init_mean_stats(self, label, weight):
+        return self._mean_stats_of((label > 0).astype(np.float64),
+                                   weight)
+
+    def init_from_mean(self, mean):
+        pavg = min(max(float(mean), 1e-15), 1.0 - 1e-15)
+        return float(np.log(pavg / (1.0 - pavg)) / self.sigmoid)
+
+
+# ---------------------------------------------------------------------------
+# Multiclass (src/objective/multiclass_objective.hpp, UNVERIFIED)
+# ---------------------------------------------------------------------------
+def _one_hot(label: torch.Tensor, K: int, dtype) -> torch.Tensor:
+    return torch.nn.functional.one_hot(label.to(torch.int64), K).to(dtype)
+
+
+def _class_weight(grad, hess, weight):
+    if weight is None:
+        return grad, hess
+    return grad * weight[:, None], hess * weight[:, None]
+
+
+class MulticlassSoftmax(Objective):
+    name = "multiclass"
+
+    def get_gradients(self, score, label, weight):
+        # score: [n, K]
+        y = _one_hot(label, score.shape[1], score.dtype)
+        p = _softmax(score, dim=1)
+        grad = p - y
+        # the factor-2 hessian follows the reference's multiclass softmax
+        hess = 2.0 * p * (1.0 - p)
+        return _class_weight(grad, hess, weight)
+
+    def convert_output(self, score):
+        return _softmax(score, dim=-1)
+
+
+class MulticlassOVA(Objective):
+    name = "multiclassova"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.sigmoid = config.sigmoid
+
+    def get_gradients(self, score, label, weight):
+        y = _one_hot(label, score.shape[1], score.dtype)
+        sig = self.sigmoid
+        p = _sigmoid(sig * score)
+        grad = sig * (p - y)
+        hess = sig * sig * p * (1.0 - p)
+        return _class_weight(grad, hess, weight)
+
+    def convert_output(self, score):
+        p = _sigmoid(self.sigmoid * score)
+        return p / torch.sum(p, dim=-1, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy family (src/objective/xentropy_objective.hpp, UNVERIFIED)
+# ---------------------------------------------------------------------------
+class CrossEntropy(Objective):
+    name = "cross_entropy"
+
+    def init_score(self, label, weight):
+        if not self.config.boost_from_average:
+            return 0.0
+        pavg = min(max(self._wavg(label, weight), 1e-15), 1.0 - 1e-15)
+        return float(np.log(pavg / (1.0 - pavg)))
+
+    def get_gradients(self, score, label, weight):
+        p = _sigmoid(score)
+        if weight is None:
+            return p - label, p * (1.0 - p)
+        # weighted cross-entropy: gradient scales with weight
+        return (p - label) * weight, p * (1.0 - p) * weight
+
+    def convert_output(self, score):
+        return _sigmoid(score)
+
+
+class CrossEntropyLambda(Objective):
+    name = "cross_entropy_lambda"
+
+    def get_gradients(self, score, label, weight):
+        # intensity parameterization, weights folded in (the reference's
+        # xentlambda)
+        w = torch.ones_like(score) if weight is None else weight
+        eps = _softplus(score)
+        sig = _sigmoid(score)
+        e = _exp(-w * eps)
+        hhat = 1.0 - e
+        grad = sig * (w * (1.0 - label / torch.clamp(hhat, min=1e-15)
+                           * e))
+        hess_base = sig * (1.0 - sig)
+        hess = torch.clamp(hess_base * w, min=1e-15)
+        return grad, hess
+
+    def convert_output(self, score):
+        return _softplus(score)
+
+
+# ---------------------------------------------------------------------------
+# helpers + factory
+# ---------------------------------------------------------------------------
+def _weighted_percentile_np(v: np.ndarray, weight: Optional[np.ndarray],
+                            alpha: float) -> float:
+    v = np.asarray(v, dtype=np.float64)
+    if weight is None:
+        return float(np.percentile(v, alpha * 100.0,
+                                   method="inverted_cdf"))
+    order = np.argsort(v)
+    cw = np.cumsum(np.asarray(weight, dtype=np.float64)[order])
+    cut = alpha * cw[-1]
+    idx = int(np.searchsorted(cw, cut))
+    return float(v[order[min(idx, len(v) - 1)]])
+
+
+def _leaf_percentile_renewal(score, label, weight, leaf_id, num_leaves,
+                             alpha):
+    """Per-leaf weighted percentile of residuals (RenewTreeOutput).
+
+    Host-side numpy (runs once per tree for L1-family objectives).
+    """
+    score = np.asarray(score)
+    label = np.asarray(label)
+    leaf_id = np.asarray(leaf_id)
+    out = np.zeros(num_leaves, dtype=np.float64)
+    resid = label - score
+    for lf in range(num_leaves):
+        m = leaf_id == lf
+        if not m.any():
+            continue
+        w = None if weight is None else np.asarray(weight)[m]
+        out[lf] = _weighted_percentile_np(resid[m], w, alpha)
+    return out
+
+
+_REGISTRY: Dict[str, Callable[..., Objective]] = {
+    "regression": RegressionL2,
+    "regression_l1": RegressionL1,
+    "huber": Huber,
+    "fair": Fair,
+    "poisson": Poisson,
+    "quantile": Quantile,
+    "mape": MAPE,
+    "gamma": Gamma,
+    "tweedie": Tweedie,
+    "binary": Binary,
+    "multiclass": MulticlassSoftmax,
+    "multiclassova": MulticlassOVA,
+    "cross_entropy": CrossEntropy,
+    "cross_entropy_lambda": CrossEntropyLambda,
+}
+
 
 def create_objective(config) -> Objective:
     """Factory by canonical objective name (after Config alias resolution)."""
-    if config.objective == "binary":
-        return Binary(config)
-    log.fatal(f"objective {config.objective!r} is not supported by "
-              f"lightgbm_tpu_torch yet")
+    name = config.objective
+    if name in _REGISTRY:
+        return _REGISTRY[name](config)
+    log.fatal(f"objective {name!r} is not supported by lightgbm_tpu_torch "
+              f"yet")

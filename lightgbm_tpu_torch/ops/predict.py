@@ -9,8 +9,10 @@ row of every tree advances one level per step by gathering its node's
 attributes (the JAX package's one-hot matmul form exists because gathers
 are slow on the TPU; on the card a gather is the direct form). The number
 of steps is the forest's depth, computed on the host, so the loop needs no
-device sync. Per-class scores add the trees' leaf values in tree order,
-as the JAX package does, so float32 sums agree bit for bit.
+device sync. Tree t of a multiclass forest belongs to class t % K (K trees
+an iteration, in class order); per-class scores add the trees' leaf values
+in tree order, as the JAX package does, so float32 sums agree bit for
+bit.
 """
 from __future__ import annotations
 
@@ -21,18 +23,23 @@ import torch
 
 def forest_predict_binned(stacked: Dict[str, torch.Tensor],
                           bins: torch.Tensor, feat_num_bin: torch.Tensor,
-                          feat_has_nan: torch.Tensor, max_depth: int
+                          feat_has_nan: torch.Tensor, max_depth: int,
+                          num_class: int = 0, first_tree: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Route every row of ``bins`` through T stacked trees (one class).
+    """Route every row of ``bins`` through T stacked trees.
 
     Args:
       stacked: tree arrays with a leading ``[T]`` axis, node arrays padded
         to ``[T, Ln]`` and ``leaf_value`` to ``[T, L]``.
       bins: ``[n, F]`` uint8 binned features.
       max_depth: the forest's depth (``Tree.leaf_depths``' maximum).
+      num_class: K > 0 sums tree t into class ``(first_tree + t) % K``
+        of an ``[n, K]`` score (``first_tree``: the forest index of the
+        first stacked tree); 0 sums every tree into one ``[n]`` score.
 
     Returns:
-      (raw score sum ``[n]`` float32, leaf index per tree ``[T, n]``).
+      (raw score sum ``[n]`` or ``[n, K]`` float32, leaf index per tree
+      ``[T, n]``).
     """
     sf = stacked["split_feature"].to(torch.int64)            # [T, Ln]
     T, Ln = sf.shape
@@ -60,9 +67,12 @@ def forest_predict_binned(stacked: Dict[str, torch.Tensor],
         node = torch.where(node >= 0, nxt, node)
     leaf = -node - 1
     vals = torch.gather(stacked["leaf_value"], 1, leaf)       # [T, n]
-    score = torch.zeros(n, dtype=torch.float32, device=dev)
+    cols = [torch.zeros(n, dtype=torch.float32, device=dev)
+            for _ in range(max(num_class, 1))]
     for t in range(T):
-        score = score + vals[t]
+        c = (first_tree + t) % num_class if num_class else 0
+        cols[c] = cols[c] + vals[t]
+    score = torch.stack(cols, dim=1) if num_class else cols[0]
     return score, leaf.to(torch.int32)
 
 

@@ -7,7 +7,14 @@ the data's device, seeded with ``objective_seed + iteration``:
 
 - ``goss_uniform``: GOSS's per-row draw that picks the sampled rest rows;
 - ``quant_uniforms``: the stochastic-rounding offsets of the quantized
-  gradient and hessian.
+  gradient and hessian of one class tree.
+
+Draw order within an iteration: GOSS's draw first (when GOSS is active),
+then the two offsets of class 0, of class 1, ... of class K-1, in the order
+the step grows the class trees. The class index is an argument so that a
+replay of the JAX package's stream can fold it into its key as the JAX
+package does (``fold_in(qkey, k)``); this stream ignores it and depends on
+the call order alone.
 
 The two streams give different numbers from the same seed, so a test that
 compares the packages hands the port the JAX package's draws through an
@@ -23,7 +30,7 @@ import torch
 class TorchNoise:
     """Per-iteration uniforms from one ``torch.Generator`` re-seeded with
     ``seed + iteration``; within an iteration the draws come in call
-    order (the step calls GOSS first, then the quantizer)."""
+    order (the step calls GOSS first, then the quantizer once per class)."""
 
     def __init__(self, seed: int, device: torch.device):
         self.seed = int(seed)
@@ -43,9 +50,10 @@ class TorchNoise:
         return torch.rand(n, generator=self._generator(iteration),
                           device=self.device, dtype=torch.float32)
 
-    def quant_uniforms(self, iteration: int, n: int
+    def quant_uniforms(self, iteration: int, n: int, k: int = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Two ``[n]`` float32 offsets in [-0.5, 0.5): gradient, hessian."""
+        """Two ``[n]`` float32 offsets in [-0.5, 0.5) for class ``k``'s
+        tree: gradient, hessian."""
         gen = self._generator(iteration)
         ng = torch.rand(n, generator=gen, device=self.device) - 0.5
         nh = torch.rand(n, generator=gen, device=self.device) - 0.5

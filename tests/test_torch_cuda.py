@@ -172,7 +172,9 @@ def test_histogram_kernel_shapes(cuda_device, int_mode, case):
 
 @pytest.mark.parametrize("n,F,C,frac,R", [
     (65_536, 28, 4, 0.3, 1024), (65_536, 28, 4, 1.0, 1024),
-    (8192, 3, 2, 0.0, 256), (20_480, 9, 5, 0.05, 512)])
+    (8192, 3, 2, 0.0, 256), (20_480, 9, 5, 0.05, 512),
+    # multiclass GOSS: 2K + 2 value rows, K = 3.5 (odd) and K = 7
+    (20_480, 9, 9, 0.05, 512), (65_536, 54, 16, 0.15, 1024)])
 def test_compaction_kernel_matches_plain(cuda_device, n, F, C, frac, R):
     rng = np.random.default_rng(n + F)
     bins_t = torch.from_numpy(rng.integers(0, 256, size=(F, n))
@@ -285,10 +287,10 @@ def test_stable_partition_sizes(cuda_device, n, frac):
 
 
 @pytest.mark.parametrize("F", [1, 28])
-@pytest.mark.parametrize("C", [1, 3, 4, 8])
+@pytest.mark.parametrize("C", [1, 3, 4, 8, 9, 16])
 def test_stable_partition_widths(cuda_device, F, C):
-    """One and 28 feature rows (a stage holds up to four), 1-8 value
-    rows, two tiles and a part."""
+    """One and 28 feature rows (a stage holds up to four), 1-16 value
+    rows (multiclass GOSS compacts 2K + 2), two tiles and a part."""
     n = 2 * TILE + 777
     args = [a.to(cuda_device) for a in _move_case(n, F, C, 0.5, seed=F + C)]
     _assert_move_equal(tp.partition_move(*args),
@@ -596,3 +598,109 @@ def test_probe_1d_plan(cuda_device):
     assert many["replicas"] == 1
     assert many["row_reads"] == -(-28 // many["features_per_pass"]) > 1
     assert 1 <= many["ctas_with_rows"] <= many["ctas"]
+
+
+class _SameDraws:
+    """The same uniforms on every device: numpy's generator seeded with
+    (iteration, stream), moved to ``device``."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def _u(self, iteration, n, stream):
+        u = np.random.default_rng([iteration, stream]).random(
+            n, dtype=np.float32)
+        return torch.from_numpy(u).to(self.device)
+
+    def goss_uniform(self, iteration, n):
+        return self._u(iteration, n, 0)
+
+    def quant_uniforms(self, iteration, n, k=0):
+        return (self._u(iteration, n, 1 + 2 * k) - 0.5,
+                self._u(iteration, n, 2 + 2 * k) - 0.5)
+
+
+# path -> (training rows, rounds, params); GOSS starts at iteration 1/lr = 3
+# and compacts all classes' gradients ([2K + 2, n]) in one launch of B
+MULTICLASS_PATHS = {
+    "masked": (5000, 4, {}),
+    "goss": (16_000, 6, {"data_sample_strategy": "goss", "top_rate": 0.1,
+                         "other_rate": 0.05, "tpu_goss_compact": True,
+                         "learning_rate": 0.3}),
+}
+
+
+@pytest.mark.parametrize("path", list(MULTICLASS_PATHS))
+def test_multiclass_training_card_matches_cpu(cuda_device, path):
+    """Multiclass softmax (3 trees an iteration) trained on the card and
+    on the CPU from the same data and draws, quantized gradients without
+    stochastic rounding, on the masked path and under GOSS with the
+    compacted buffer: identical split lines, predictions within 1e-5."""
+    import lightgbm_tpu_torch as lgt
+    n, rounds, extra = MULTICLASS_PATHS[path]
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(n + 1000, 12))
+    y = np.argmax(X[:, :3] + rng.normal(scale=0.7, size=(n + 1000, 3)),
+                  axis=1).astype(np.float64)
+    keys = ("split_feature", "threshold", "decision_type", "left_child",
+            "right_child", "num_leaves")
+    out = {}
+    compact0 = tc.compact_by_mask.launches
+    for dev in ("cuda", "cpu"):
+        bst = lgt.train(dict({"objective": "multiclass", "num_class": 3,
+                              "num_leaves": 15, "tpu_leaf_batch": 4,
+                              "use_quantized_grad": True,
+                              "stochastic_rounding": False, "verbosity": -1,
+                              "device_type": dev}, **extra),
+                        lgt.Dataset(X[:n], label=y[:n]),
+                        num_boost_round=rounds, noise=_SameDraws(dev))
+        assert bst.engine.use_goss_compact == (path == "goss")
+        out[dev] = ([ln for ln in bst.model_to_string().splitlines()
+                     if ln.split("=", 1)[0] in keys], bst.predict(X[n:]))
+    if path == "goss":
+        assert tc.compact_by_mask.launches - compact0 == rounds - 3
+    assert len(out["cuda"][0]) == len(keys) * 3 * rounds
+    assert out["cuda"][0] == out["cpu"][0]
+    assert out["cuda"][1].shape == (1000, 3)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0,
+                               atol=1e-5)
+
+
+def _off_by_the_reciprocal(levels, rng):
+    """A float32 value x > 1 whose x * (1 / levels) is not x / levels."""
+    recip = np.float32(1.0) / np.float32(levels)
+    while True:
+        x = np.float32(rng.uniform(1.0, 2.0))
+        if x * recip != x / np.float32(levels):
+            return x
+
+
+@pytest.mark.parametrize("levels", [3, 15])
+def test_quantize_on_the_card_equals_the_cpu(cuda_device, levels):
+    """The gradient quantizer gives the same levels and scales on the card
+    as on the CPU, bit for bit, where max |g| and max h are values whose
+    product with the reciprocal of the level count is not their quotient
+    (CUDA divides a tensor by a Python number as such a product; the
+    CPU and the JAX package take the quotient)."""
+    from lightgbm_tpu_torch.boosting.gbdt import quantize
+    rng = np.random.default_rng(levels)
+    n = 4096
+    g = rng.uniform(-1.0, 1.0, size=n).astype(np.float32)
+    h = rng.uniform(0.0, 1.0, size=n).astype(np.float32)
+    g[7] = -_off_by_the_reciprocal(levels, rng)
+    h[11] = _off_by_the_reciprocal(levels, rng)
+    count = (rng.random(n) < 0.9).astype(np.float32)
+    draws = [rng.uniform(-0.5, 0.5, size=n).astype(np.float32)
+             for _ in range(2)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = [torch.from_numpy(a).to(dev) for a in (g, h, count, *draws)]
+        out[dev] = quantize(t[0], t[1], t[2], levels, levels, (t[3], t[4]))
+    # the inputs catch a division by the Python number on the card
+    gmax = torch.tensor(-g[7], device=cuda_device)
+    assert float(gmax / levels) != float(np.float32(-g[7])
+                                         / np.float32(levels))
+    assert float(out["cpu"][2][0]) == float(np.float32(-g[7])
+                                            / np.float32(levels))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a.cpu(), b)

@@ -60,8 +60,9 @@ def synth_higgs(n, f, seed=0):
 class JaxReplayNoise:
     """The JAX package's training draws (gbdt.py key derivation:
     PRNGKey(objective_seed + iter); split -> (kg, km) for GOSS;
-    fold_in(key, 0x9e37) then fold_in(., class 0) -> split -> (kg, kh)
-    for stochastic rounding), handed to the port as tensors."""
+    fold_in(key, 0x9e37) then fold_in(., class k) -> split -> (kg, kh)
+    for stochastic rounding of class k's tree), handed to the port as
+    tensors."""
 
     def __init__(self, seed):
         self.seed = seed
@@ -70,9 +71,9 @@ class JaxReplayNoise:
         _, km = jax.random.split(jax.random.PRNGKey(self.seed + iteration))
         return torch.from_numpy(np.array(jax.random.uniform(km, (n,))))
 
-    def quant_uniforms(self, iteration, n):
+    def quant_uniforms(self, iteration, n, k=0):
         key = jax.random.PRNGKey(self.seed + iteration)
-        kq = jax.random.fold_in(jax.random.fold_in(key, 0x9e37), 0)
+        kq = jax.random.fold_in(jax.random.fold_in(key, 0x9e37), k)
         kg, kh = jax.random.split(kq)
         return tuple(torch.from_numpy(np.array(jax.random.uniform(
             k, (n,), minval=-0.5, maxval=0.5))) for k in (kg, kh))
@@ -137,8 +138,7 @@ def test_port_predicts_jax_model_text(trained):
 def test_forest_from_jax_predicts_the_same(trained):
     ref, port = trained["ref"], trained["port"]
     eng = port.engine
-    trees = forest_from_jax([{k: v[0] for k, v in f.items()}
-                             for f in trained["fetched"]],
+    trees = forest_from_jax(trained["fetched"],
                             float(PARAMS["learning_rate"]),
                             eng.train_set.bin_mappers,
                             eng.train_set.used_features)
