@@ -63,15 +63,30 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
    0.9) on 1M rows, 5 rounds (f32 mode; the host leaf renewal timed);
    then every ported objective for 5 rounds on 20k rows, 31 leaves,
    quantized gradients without stochastic rounding, once on the card and
-   once on the CPU: split lines identical, predictions within 1e-5.
+   once on the CPU: split lines identical, predictions within 1e-5;
+9. categorical features: ``bench.py``'s categorical guard at its own size
+   and settings (``synth_guard``, 200k training rows, 50k holdout, 63
+   leaves, 50 rounds) with its two categorical columns (holdout AUC above
+   bench.py's floor 0.85) and with them numeric; the Criteo shape of
+   ``benchmarks/suite.py`` (1M x 199, 26 categorical columns, 127 leaves,
+   no EFB) on the masked path, GOSS with compaction and the forced
+   partition, 10 rounds each (GOSS 10 more first, as it starts at
+   iteration 1 / learning rate), each traced, the partition's model text
+   byte-equal to the masked run's, and one more iteration's kernel-A
+   calls, GOSS compaction and partition moves at F = 199 held against
+   their plain versions; then a 20k-row guard-shaped set (with a 3-way
+   column and NaN in the categorical columns) on the three paths, binary
+   on quantized and exact gradients and 3-class multiclass, on the card
+   and on the CPU.
 
 Each training run sets the kernels' launch counts to 0 just before it
 and reads them just after. The last two lines of standard output are the
 per-kernel JSON line and the result line ``{"ok": true, "device":
 {...}}``; any failure exits non-zero before the result line.
 ``--json-out PATH`` also writes the per-kernel record, replay included,
-to PATH; ``--only-probes``, ``--only-sweep`` and ``--only-objectives``
-build the kernels, run phase 3, 7 or 8 and stop (no result line). It needs a CUDA device and imports neither JAX nor
+to PATH; ``--only-probes``, ``--only-sweep``, ``--only-objectives`` and
+``--only-categorical`` build the kernels, run phase 3, 7, 8 or 9 and stop
+(no result line). It needs a CUDA device and imports neither JAX nor
 ``lightgbm_tpu``.
 """
 import json
@@ -169,6 +184,37 @@ PARITY_OBJECTIVES = {
 PARITY_PRED_TOL = 1e-5          # |card - CPU| <= tol * max(1, |CPU|)
 SPLIT_KEYS = ("split_feature", "threshold", "decision_type", "left_child",
               "right_child", "num_leaves")
+# the categorical phase: bench.py's categorical guard (bench.py:402-412)
+N_GUARD, N_GUARD_TRAIN, GUARD_ROUNDS = 250_000, 200_000, 50
+GUARD_CATS = [10, 11]
+GUARD_PARAMS = {"objective": "binary", "num_leaves": 63, "max_bin": 255,
+                "learning_rate": 0.1, "metric": "auc", "verbosity": -1,
+                "device_type": "cuda"}
+# the Criteo shape (benchmarks/suite.py::bench_criteo) without EFB, which
+# the port does not have; AUC on the first 100k rows, as the suite's
+N_CRITEO, CRITEO_ROUNDS, CRITEO_AUC_ROWS = 1_000_000, 10, 100_000
+CRITEO_CATS = list(range(13, 39))
+CRITEO_PARAMS = {"objective": "binary", "num_leaves": 127, "max_bin": 255,
+                 "learning_rate": 0.1, "enable_bundle": False,
+                 "verbosity": -1, "device_type": "cuda"}
+CRITEO_PATHS = {
+    "masked": {"tpu_hist_partition": "false"},
+    "goss": {"data_sample_strategy": "goss", "tpu_goss_compact": True,
+             "stochastic_rounding": True, "tpu_hist_partition": "false"},
+    "partition": {"tpu_hist_partition": "true"},
+}
+# categorical card against CPU (on PARITY_PARAMS, N_PARITY rows)
+CAT_PARITY_SETTINGS = {
+    "binary_quantized": {"objective": "binary"},
+    "binary_exact": {"objective": "binary", "use_quantized_grad": False},
+    "multiclass": {"objective": "multiclass", "num_class": 3},
+}
+CAT_PARITY_PATHS = {
+    "masked": {},
+    # GOSS from iteration 1 / 0.3 = 3 of the 5
+    "goss": {"data_sample_strategy": "goss", "learning_rate": 0.3},
+    "partition": {"tpu_hist_partition": "true"},
+}
 # the probes' shapes (benchmarks/kernel_probe.py:7-12, every row in lane
 # 0, and benchmarks/nibble_probe.py:25-31, ids uniform over the lanes),
 # the 1-D probe also at the nibble probe's: probe, F, n, B, K, C, leaf ids
@@ -1762,6 +1808,393 @@ def objectives_phase(lgt, th, tp, serial, smi):
     return res
 
 
+def synth_guard(n, seed=7, nan_cats=False, small_cat=False):
+    """bench.py's categorical guard (the port's copy of
+    ``bench.py::synth_guard``): 10 numeric features (pairwise
+    interactions dominate), one 12-way and one 40-way categorical with
+    target-dependent effects, 10% NaNs in half the numeric columns
+    (informative missingness). ``small_cat`` adds a 3-way categorical
+    column (the one-hot mode) and ``nan_cats`` 10% NaN in the categorical
+    columns, for the card-against-CPU runs."""
+    rng = np.random.default_rng(seed)
+    Xn = rng.normal(size=(n, 10)).astype(np.float64)
+    c1 = rng.integers(0, 12, size=n)
+    c2 = rng.integers(0, 40, size=n)
+    eff1 = rng.normal(size=12)[c1] * 1.2
+    eff2 = rng.normal(size=40)[c2] * 0.8
+    logit = (1.0 * Xn[:, 0] * Xn[:, 1] + 0.9 * Xn[:, 2] * Xn[:, 3]
+             - 0.7 * Xn[:, 4] * np.abs(Xn[:, 5]) + eff1 + eff2)
+    for j in range(5):
+        miss = rng.uniform(size=n) < 0.10
+        logit = logit + np.where(miss, 0.6, 0.0)
+        Xn[miss, j] = np.nan
+    cols = [Xn, c1.astype(np.float64), c2.astype(np.float64)]
+    if small_cat:
+        c3 = rng.integers(0, 3, size=n)
+        logit = logit + np.array([0.5, -0.6, 0.2])[c3]
+        cols.append(c3.astype(np.float64))
+    y = (logit + rng.normal(scale=1.0, size=n) > 0).astype(np.float64)
+    X = np.column_stack(cols)
+    if nan_cats:
+        for j in range(10, X.shape[1]):
+            X[rng.uniform(size=n) < 0.10, j] = np.nan
+    return X, y, logit
+
+
+def synth_criteo(n, seed=2):
+    """The Criteo CTR shape (the port's copy of the data of
+    ``benchmarks/suite.py::bench_criteo``): 13 lognormal dense columns,
+    26 categorical columns of 8 to 256 categories, 20 groups of 8 mutually
+    exclusive 0/1 indicators; 199 features, a binary label."""
+    rng = np.random.default_rng(seed)
+    dense = rng.lognormal(size=(n, 13)).astype(np.float32)
+    cats = np.stack([rng.integers(0, c, size=n) for c in
+                     ([8, 16, 32, 64, 128, 256] * 5)[:26]], axis=1)
+    groups = []
+    for _ in range(20):
+        sel = rng.integers(0, 9, size=n)          # 8 = absent
+        groups.append((sel[:, None] == np.arange(8)[None, :])
+                      .astype(np.float32))
+    sparse = np.concatenate(groups, axis=1)
+    X = np.concatenate([dense, cats.astype(np.float32), sparse], axis=1)
+    logit = (0.4 * np.log1p(dense[:, 0]) + 0.3 * (cats[:, 0] % 3 == 0)
+             + sparse[:, 0] - 0.8)
+    y = (logit + rng.normal(scale=1.0, size=n) > 0).astype(np.float64)
+    return X.astype(np.float64), y
+
+
+def auc_of(pred, label):
+    """AUC by the port's own metric."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.metric import AUCMetric
+    return AUCMetric(Config({})).eval(pred, label, None)[0][1]
+
+
+def categorical_nodes(models):
+    return sum(int(t.is_categorical.sum()) for t in models
+               if t.is_categorical is not None)
+
+
+class CallRecorder:
+    """Takes the place of ``module.name`` (a kernel wrapper the training
+    loop calls), passes every call on to it, so its launch count is
+    unchanged, and while ``on`` keeps a copy of the call's arguments."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.prev = getattr(module, name)
+        self.on, self.calls = False, []
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kw):
+        if self.on:
+            self.calls.append(tuple(a.clone() if torch.is_tensor(a) else a
+                                    for a in args))
+        return self.prev(*args, **kw)
+
+    def close(self):
+        setattr(self.module, self.name, self.prev)
+
+
+def guard_run(lgt, th, smi):
+    """bench.py's categorical guard at its own size and settings: 200k
+    training rows, 50k holdout, 63 leaves, 50 rounds, with the two
+    categorical columns and with the same columns treated as numeric."""
+    X, y, _ = synth_guard(N_GUARD)
+    Xt, yt = X[:N_GUARD_TRAIN], y[:N_GUARD_TRAIN]
+    Xv, yv = X[N_GUARD_TRAIN:], y[N_GUARD_TRAIN:]
+    out = {}
+    for label, cats in (("categorical", GUARD_CATS), ("numeric", [])):
+        ds = lgt.Dataset(Xt, label=yt, categorical_feature=cats)
+        bst = lgt.Booster(params=dict(GUARD_PARAMS), train_set=ds)
+        bst.add_valid(ds.create_valid(Xv, label=yv), "holdout")
+        eng = bst.engine
+        if eng.has_categorical != bool(cats):
+            raise AssertionError(f"guard {label}: has_categorical "
+                                 f"{eng.has_categorical}")
+        th.multi_leaf_histogram.launches = 0
+        secs = []
+        for _ in range(GUARD_ROUNDS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            bst.update()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        [(_, _, auc, _)] = bst.eval_valid()
+        pred = bst.predict(Xv)
+        out[label] = dict(
+            auc=auc, it_per_s_after_first=(len(secs) - 1) / sum(secs[1:]),
+            first_iter_s=secs[0], cat_nodes=categorical_nodes(eng.models),
+            int_hist=eng.grow_cfg.int_hist,
+            launches={"histogram": th.multi_leaf_histogram.launches})
+        print(f"categorical: guard (bench.py synth_guard, {N_GUARD_TRAIN} "
+              f"rows, 63 leaves) {label}: {GUARD_ROUNDS} rounds, holdout "
+              f"AUC {auc:.6f}, {out[label]['it_per_s_after_first']:.3f} it/s "
+              f"after the first iteration (first {secs[0]:.3f} s) on {smi}; "
+              f"categorical splits {out[label]['cat_nodes']}, kernel A "
+              f"launches {th.multi_leaf_histogram.launches} "
+              f"({'int' if eng.grow_cfg.int_hist else 'f32'} mode)",
+              flush=True)
+        if not (np.isfinite(pred).all() and pred.shape == (len(Xv),)):
+            raise AssertionError(f"guard {label}: predictions")
+    cat, num = out["categorical"], out["numeric"]
+    print(f"categorical: guard holdout AUC {cat['auc']:.6f} with the "
+          f"categorical columns, {num['auc']:.6f} with them numeric "
+          f"(bench.py's floor 0.85)", flush=True)
+    if not (cat["auc"] > 0.85 and cat["cat_nodes"] > 0
+            and num["cat_nodes"] == 0 and cat["launches"]["histogram"] > 0):
+        raise AssertionError(f"guard: {out}")
+    return out
+
+
+def hold_moves(tc, tp, compactions, moves):
+    """The recorded GOSS compactions and partition moves (F = 199) against
+    their plain versions, bit for bit."""
+    for i, (bins, vals, keep, out_cols) in enumerate(compactions):
+        got = tc.compact_by_mask(bins, vals, keep, out_cols)
+        ref = tc.compact_by_mask_plain(bins, vals, keep, out_cols)
+        torch.cuda.synchronize()
+        if not all(same_bits(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"criteo compaction {i} differs from the "
+                                 "plain version")
+    for i, (bins, vals, old, new) in enumerate(moves):
+        (kb, kv, kl), knf, kcum = tp.partition_move(bins, vals, old, new)
+        (pb, pv, pl), pnf, pcum = tp.partition_move_plain(bins, vals, old,
+                                                          new)
+        torch.cuda.synchronize()
+        if not (same_bits(kb, pb) and same_bits(kv, pv)
+                and same_bits(kl, pl) and same_bits(kcum, pcum)
+                and int(knf) == int(pnf)):
+            raise AssertionError(f"criteo partition move {i} differs from "
+                                 "the plain version")
+    return dict(
+        compactions=[dict(shape=list(c[0].shape), values=c[1].shape[0],
+                          kept=int(c[2].sum()), out_cols=c[3])
+                     for c in compactions],
+        moves=[dict(shape=list(m[0].shape), moved=int((m[2] != m[3]).sum()))
+               for m in moves])
+
+
+def criteo_run(lgt, th, tc, tp, serial, gbdt, smi):
+    """The Criteo shape on three paths, CRITEO_ROUNDS rounds each (the
+    GOSS path 1 / learning rate more: GOSS starts there): it/s, AUC on the
+    first 100k rows, launches, categorical splits and a trace; then one
+    more iteration of each whose kernel-A calls (masked), compaction
+    (GOSS) or partition moves (partition) are held against the plain
+    versions at F = 199. The partition's text must equal the masked
+    run's."""
+    t0 = time.time()
+    X, y = synth_criteo(N_CRITEO)
+    ds = lgt.Dataset(X, label=y, categorical_feature=CRITEO_CATS)
+    ds.construct()
+    Xa, ya = X[:CRITEO_AUC_ROWS], y[:CRITEO_AUC_ROWS]
+    del X
+    setup_s = time.time() - t0
+    print(f"categorical: Criteo shape {N_CRITEO} x 199 (26 categorical): "
+          f"data and binning {setup_s:.1f} s", flush=True)
+    runs, texts = {}, {}
+    rec = HistRecorder(serial, th)
+    crec = CallRecorder(gbdt, "compact_by_mask")
+    prec = CallRecorder(serial, "partition_move")
+    try:
+        for path, extra in CRITEO_PATHS.items():
+            bst = lgt.Booster(params=dict(CRITEO_PARAMS, **extra),
+                              train_set=ds)
+            eng = bst.engine
+            if not (eng.has_categorical and eng.grow_cfg.int_hist
+                    and eng.num_features == 199
+                    and eng.hist_partition == (path == "partition")
+                    and eng.use_goss_compact == (path == "goss")):
+                raise AssertionError(f"criteo {path}: {eng.grow_cfg}")
+            warm = (int(1.0 / CRITEO_PARAMS["learning_rate"])
+                    if path == "goss" else 0)
+            rounds = CRITEO_ROUNDS + warm
+            th.multi_leaf_histogram.launches = 0
+            tc.compact_by_mask.launches = 0
+            tp.partition_move.launches = 0
+            secs = []
+            for _ in range(rounds):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                bst.update()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+            launches = {"histogram": th.multi_leaf_histogram.launches,
+                        "compact": tc.compact_by_mask.launches,
+                        "partition": tp.partition_move.launches}
+            # it/s after the first iteration; under GOSS, of the GOSS
+            # iterations (after the first of them)
+            timed = secs[warm + 1:]
+            r = dict(rounds=rounds, it_per_s_after_first=len(timed)
+                     / sum(timed), first_iter_s=secs[0],
+                     iter_s=[round(s, 4) for s in secs],
+                     auc_first_100k=auc_of(bst.predict(Xa), ya),
+                     cat_nodes=categorical_nodes(eng.models),
+                     nodes=sum(t.num_nodes for t in eng.models),
+                     launches=launches,
+                     hist_rows_scanned=eng.hist_rows_scanned)
+            texts[path] = bst.model_to_string()
+            print(f"categorical: Criteo {path}: {rounds} rounds, "
+                  f"{r['it_per_s_after_first']:.3f} it/s "
+                  + ("(GOSS iterations after the first) " if warm
+                     else "(after the first iteration) ")
+                  + f"on {smi}; seconds per iteration {r['iter_s']}; AUC "
+                  f"on the first {CRITEO_AUC_ROWS} rows "
+                  f"{r['auc_first_100k']:.6f}; categorical splits "
+                  f"{r['cat_nodes']} of {r['nodes']}; launches {launches}",
+                  flush=True)
+            tr = r["trace"] = trace_rounds(bst, TRACE_ROUNDS)
+            print(f"categorical: Criteo {path} traced ({TRACE_ROUNDS} more "
+                  f"iterations): {tr['wall_ms_per_iter']:.2f} ms wall, device"
+                  f" busy {tr['busy_ms_per_iter']} ms, idle share "
+                  f"{tr['idle_share']}, device ms per iteration of the move "
+                  f"and compaction kernels {tr['step_ms_per_iter']}, "
+                  f"device-to-host copies per iteration "
+                  f"{tr['dtoh_per_iter']}; top device time (ms per "
+                  f"iteration): {tr['top_kernels']}", flush=True)
+            # one more iteration with this path's kernel calls recorded
+            rec.tag = "criteo_masked" if path == "masked" else None
+            crec.on, prec.on = path == "goss", path == "partition"
+            bst.update()
+            rec.tag, crec.on, prec.on = None, False, False
+            runs[path] = r
+            if not (launches["histogram"] > 0 and r["cat_nodes"] > 0
+                    and math.isfinite(r["it_per_s_after_first"])
+                    and r["auc_first_100k"] > 0.6):
+                raise AssertionError(f"criteo {path}: {r}")
+            if (launches["compact"] > 0) != (path == "goss") or \
+                    (launches["partition"] > 0) != (path == "partition"):
+                raise AssertionError(f"criteo {path}: launches {launches}")
+            del bst, eng
+    finally:
+        rec.close()
+        crec.close()
+        prec.close()
+    if texts["partition"] != texts["masked"]:
+        raise AssertionError("criteo: model text differs with the "
+                             "partition on")
+    rng, exact = np.random.default_rng(9), {}
+    for i, call in enumerate(rec.calls):
+        hold_call(th, call, f"criteo call {i}", rng, exact)
+    shapes = sorted({(*c["args"][0].shape, c["args"][1].shape[0],
+                      c["args"][3].shape[0]) for c in rec.calls})
+    held = dict(histogram_calls=len(rec.calls), histogram_shapes=shapes,
+                **hold_moves(tc, tp, crec.calls, prec.calls))
+    print(f"categorical: Criteo kernels at F = 199 held against the plain "
+          f"versions: {len(rec.calls)} kernel-A calls of one masked "
+          f"iteration (shapes F, n, C, lanes: {shapes}; int mode and "
+          f"exact-sum f32 mode bit-equal), compactions {held['compactions']}"
+          f" and partition moves {held['moves']} bit-equal", flush=True)
+    if not (len(rec.calls) >= 2 and all(f == 199 for f, *_ in shapes)
+            and crec.calls and prec.calls):
+        raise AssertionError(f"criteo recorded calls: {held}")
+    return dict(runs, held_against_plain=held, setup_s=setup_s,
+                partition_text_equal=True)
+
+
+class SameDraws:
+    """The same uniforms on every device (numpy's generator seeded with
+    the iteration and the stream, moved to ``device``): each device's own
+    torch generator gives other numbers, and GOSS samples by them."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def _u(self, iteration, n, stream):
+        u = np.random.default_rng([iteration, stream]).random(
+            n, dtype=np.float32)
+        return torch.from_numpy(u).to(self.device)
+
+    def goss_uniform(self, iteration, n):
+        return self._u(iteration, n, 0)
+
+    def quant_uniforms(self, iteration, n, k=0):
+        return (self._u(iteration, n, 1 + 2 * k) - 0.5,
+                self._u(iteration, n, 2 + 2 * k) - 0.5)
+
+
+def categorical_parity_run(lgt, th, tc, tp, smi):
+    """A 20k-row guard-shaped set (a 3-way column for the one-hot mode,
+    10% NaN in the categorical columns), 5 rounds on the masked, GOSS and
+    partition paths, binary on quantized and exact gradients and 3-class
+    multiclass, on the card and on the CPU from the same draws
+    (``SameDraws``): split lines identical,
+    predictions within PARITY_PRED_TOL, categorical splits present. On
+    exact gradients kernel A adds float32 values in another order than
+    the plain version, and the sorted scan's two equal-gain forms of one
+    left set (a prefix and the complement's prefix, children swapped)
+    follow those last bits: there, if the lines differ, every tree must
+    put the same training rows in each leaf."""
+    X, y, logit = synth_guard(N_PARITY + N_PARITY_HOLDOUT, seed=3,
+                              nan_cats=True, small_cat=True)
+    labels = {"binary": y, "multiclass": np.digitize(
+        logit, np.quantile(logit, [1 / 3, 2 / 3])).astype(np.float64)}
+    cats = list(range(10, X.shape[1]))
+    out = {}
+    th.multi_leaf_histogram.launches = 0
+    tc.compact_by_mask.launches = 0
+    tp.partition_move.launches = 0
+    for setting, obj in CAT_PARITY_SETTINGS.items():
+        yy = labels[obj["objective"]]
+        for path, extra in CAT_PARITY_PATHS.items():
+            res = {}
+            for dev in ("cuda", "cpu"):
+                bst = lgt.train(
+                    dict(PARITY_PARAMS, device_type=dev, **obj, **extra),
+                    lgt.Dataset(X[:N_PARITY], label=yy[:N_PARITY],
+                                categorical_feature=cats),
+                    num_boost_round=PARITY_ROUNDS, noise=SameDraws(dev))
+                eng = bst.engine
+                if eng.use_goss_compact != (path == "goss") or \
+                        eng.hist_partition != (path == "partition"):
+                    raise AssertionError(f"card against CPU {setting} "
+                                         f"{path}: engine paths")
+                res[dev] = (split_lines(bst.model_to_string()),
+                            bst.predict(X[N_PARITY:]),
+                            categorical_nodes(eng.models),
+                            bst.predict(X[:N_PARITY], pred_leaf=True))
+            equal = res["cuda"][0] == res["cpu"][0]
+            same_rows = all(
+                len(set(zip(a.tolist(), b.tolist())))
+                == len(set(a.tolist())) == len(set(b.tolist()))
+                for a, b in zip(res["cuda"][3].T, res["cpu"][3].T))
+            diff = float(np.max(np.abs(res["cuda"][1] - res["cpu"][1])
+                                / np.maximum(1.0, np.abs(res["cpu"][1]))))
+            out[f"{setting}_{path}"] = dict(
+                split_lines_equal=equal, same_leaf_rows=same_rows,
+                max_rel_diff=diff, cat_nodes=res["cpu"][2])
+            print(f"categorical: card against CPU, {setting} {path}: split "
+                  f"lines {'identical' if equal else 'DIFFER'}, the same "
+                  f"rows in every leaf {same_rows}, categorical splits "
+                  f"{res['cpu'][2]}, predictions max |diff| / max(1, |CPU|)"
+                  f" {diff:.3g}", flush=True)
+            exact = not obj.get("use_quantized_grad", True)
+            if not ((equal or (exact and same_rows))
+                    and diff <= PARITY_PRED_TOL and res["cpu"][2] > 0):
+                raise AssertionError(f"categorical card against CPU, "
+                                     f"{setting} {path}: {out}")
+    out["launches"] = {"histogram": th.multi_leaf_histogram.launches,
+                       "compact": tc.compact_by_mask.launches,
+                       "partition": tp.partition_move.launches}
+    if min(out["launches"].values()) <= 0:
+        raise AssertionError(f"categorical card against CPU: launches "
+                             f"{out['launches']}")
+    return out
+
+
+def categorical_phase(lgt, th, tc, tp, serial, gbdt, smi):
+    """bench.py's categorical guard, the Criteo shape on three paths with
+    its kernels held at F = 199, and categorical training on the card
+    against the CPU."""
+    t0 = time.time()
+    res = {"guard": guard_run(lgt, th, smi),
+           "criteo": criteo_run(lgt, th, tc, tp, serial, gbdt, smi),
+           "card_vs_cpu": categorical_parity_run(lgt, th, tc, tp, smi)}
+    res["seconds"] = time.time() - t0
+    print(f"categorical phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main(argv):
     json_out = argv[argv.index("--json-out") + 1] if "--json-out" in argv \
         else None
@@ -1784,6 +2217,7 @@ def main(argv):
     from lightgbm_tpu_torch.ops import kernels
     from lightgbm_tpu_torch.ops import partition as tp
     from lightgbm_tpu_torch.learner import serial
+    from lightgbm_tpu_torch.boosting import gbdt
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t0 = time.time()
@@ -1830,6 +2264,9 @@ def main(argv):
     if "--only-objectives" in argv:
         objectives_phase(lgt, th, tp, serial, smi)
         return 0
+    if "--only-categorical" in argv:
+        categorical_phase(lgt, th, tc, tp, serial, gbdt, smi)
+        return 0
     n_full_pad = pad_rows(N_FULL, Config({}).tpu_rows_per_block)
     hist = histogram_phase(dev, th, tp, n_full_pad)
     comp = compaction_phase(dev, tc, parent)
@@ -1844,6 +2281,7 @@ def main(argv):
     del rec
     sweep = partition_sweep_phase(lgt, tp)
     objs = objectives_phase(lgt, th, tp, serial, smi)
+    cat = categorical_phase(lgt, th, tc, tp, serial, gbdt, smi)
 
     h, c, p = hist["masked"], comp["goss"], part["half"]
     fl = {m: r["launches"] for m, r in full.items()}
@@ -1856,7 +2294,13 @@ def main(argv):
                 "regression_masked": reg["false"]["launches"].get(key, 0),
                 "regression_partition": reg["true"]["launches"].get(key, 0),
                 "multiclass": objs["multiclass"]["launches"].get(key, 0),
-                "quantile": objs["quantile"]["launches"].get(key, 0)}
+                "quantile": objs["quantile"]["launches"].get(key, 0),
+                "categorical_guard":
+                    cat["guard"]["categorical"]["launches"].get(key, 0),
+                **{f"criteo_{p}": cat["criteo"][p]["launches"][key]
+                   for p in CRITEO_PATHS},
+                "categorical_card_vs_cpu":
+                    cat["card_vs_cpu"]["launches"][key]}
 
     def probe_entry(name, tag, source_line):
         pr = probes[name]
@@ -1932,7 +2376,8 @@ def main(argv):
                     "benchmarks/nibble_probe.py:83"),
     ], "train": dict({k: v for k, v in train.items()
                       if k not in ("trees_leaves",)}, full_row=full,
-                     partition_sweep=sweep, objectives=objs)}
+                     partition_sweep=sweep, objectives=objs,
+                     categorical=cat)}
     for v in (kernels_line["train"]["masked_it_per_s"],
               kernels_line["train"]["goss_it_per_s"]):
         if not math.isfinite(v):

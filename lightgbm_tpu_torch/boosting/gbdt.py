@@ -11,14 +11,15 @@ objective but the ranking ones, with K trees an iteration for multiclass
 per-tree feature_fraction and the leaf-ordered row partition of
 ``tpu_hist_partition``) and GOSS steps (masked, or with the compacted
 histogram buffer of ``tpu_goss_compact``), exact or quantized gradients
-with stochastic rounding, and the host leaf renewal of L1, quantile and
-MAPE. Scores and the binned matrices stay on the device across
-iterations; each iteration copies the finished trees' flat arrays to the
-host. ``gradients``, ``quantize`` and ``goss_masks`` are
-pure functions that take their uniform draws as tensors; the draws come
-from a noise object (``utils/random.py``). Bagging and feature masks are
-drawn on the host from ``numpy.random.RandomState(bagging_seed /
-feature_fraction_seed)`` exactly as the JAX package draws them.
+with stochastic rounding, categorical features (bitset splits) and the
+host leaf renewal of L1, quantile and MAPE. Scores and the binned
+matrices stay on the device across iterations; each iteration copies the
+finished trees' flat arrays to the host. ``gradients``, ``quantize`` and
+``goss_masks`` are pure functions that take their uniform draws as
+tensors; the draws come from a noise object (``utils/random.py``).
+Bagging and feature masks are drawn on the host from
+``numpy.random.RandomState(bagging_seed / feature_fraction_seed)``
+exactly as the JAX package draws them.
 """
 from __future__ import annotations
 
@@ -232,12 +233,19 @@ class GBDT:
         F = len(self.train_set.used_features)
         num_bin = self.train_set.feature_num_bins()
         self.B = max(8, _ceil_to(int(num_bin.max()) if F else 2, 8))
+        is_cat = np.array(
+            [self.train_set.bin_mappers[f].bin_type == "categorical"
+             for f in self.train_set.used_features], dtype=bool)
+        # a categorical NaN or unseen category is bin 0 and routes by a
+        # bitset miss, not by the numerical last-bin NaN convention
         has_nan = np.array(
             [self.train_set.bin_mappers[f].missing_type == "nan"
-             for f in self.train_set.used_features], dtype=bool)
+             for f in self.train_set.used_features], dtype=bool) & ~is_cat
         self.feat_num_bin = torch.as_tensor(num_bin.astype(np.int32),
                                             device=dev)
         self.feat_has_nan = torch.as_tensor(has_nan, device=dev)
+        self.has_categorical = bool(is_cat.any())
+        self.feat_is_cat = torch.as_tensor(is_cat, device=dev)
         self.num_features = F
         self.allowed = torch.ones(F, dtype=torch.bool, device=dev)
         self.data = DeviceData.from_dataset(self.train_set,
@@ -275,7 +283,12 @@ class GBDT:
             # the int32 accumulator must hold qbins * n_rows
             int_hist=(self.use_quant and qbins <= 127
                       and self.data.n_pad * qbins < 2**31),
-            partition=self.hist_partition)
+            partition=self.hist_partition,
+            has_categorical=self.has_categorical,
+            max_cat_threshold=c.max_cat_threshold,
+            cat_smooth=c.cat_smooth, cat_l2=c.cat_l2,
+            max_cat_to_onehot=c.max_cat_to_onehot,
+            min_data_per_group=c.min_data_per_group)
 
         # ---- GOSS (goss.hpp) ------------------------------------------
         # goss.hpp truncates the DOUBLE product rate * cnt; the counts
@@ -441,7 +454,7 @@ class GBDT:
                                      mask_count, d.n_pad, k)
             out.append(grow_tree(d.bins_t, vals, self.feat_num_bin,
                                  self.feat_has_nan, allowed, self.grow_cfg,
-                                 chan_scale=scale))
+                                 chan_scale=scale, is_cat=self.feat_is_cat))
         return out
 
     def _step_goss_compact(self, allowed: torch.Tensor):
@@ -467,7 +480,8 @@ class GBDT:
                                        self.goss_n_sub, k)
             out.append(grow_tree(d.bins_t, vals_c, self.feat_num_bin,
                                  self.feat_has_nan, allowed, cfg,
-                                 chan_scale=scale, compact_bins_t=bins_t_c))
+                                 chan_scale=scale, compact_bins_t=bins_t_c,
+                                 is_cat=self.feat_is_cat))
         return out
 
     def goss_active(self) -> bool:
@@ -559,6 +573,18 @@ class GBDT:
             "leaf_value": padded(lambda t: t.leaf_value.astype(np.float32),
                                  L, np.float32),
         }
+        if any(t.cat_bitset_bins is not None for t in trees):
+            W = max(t.cat_bitset_bins.shape[1] for t in trees
+                    if t.cat_bitset_bins is not None)
+            bs = np.zeros((len(trees), Ln, W), dtype=np.int64)
+            for i, t in enumerate(trees):
+                if t.cat_bitset_bins is not None:
+                    a = t.cat_bitset_bins
+                    bs[i, :a.shape[0], :a.shape[1]] = a
+            stacked["is_cat"] = padded(
+                lambda t: (t.is_categorical if t.is_categorical is not None
+                           else np.zeros(t.num_nodes, bool)), Ln, bool)
+            stacked["cat_bitset"] = torch.from_numpy(bs).to(dev)
         depth = max(int(t.leaf_depths().max()) for t in trees)
         self._stack_cache = (key, stacked, depth)
         return stacked, depth

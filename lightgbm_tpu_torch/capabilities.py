@@ -6,10 +6,12 @@ and pool-mode histograms for every objective but the ranking ones (K trees
 an iteration for multiclass), trained on full rows (with bagging, per-tree
 feature_fraction and the leaf-ordered row partition) or under GOSS (with
 the compacted histogram buffer), on exact or quantized gradients, with
-every metric but the ranking ones and early stopping. Every other feature
-of the JAX package is FATAL here with a message that names it, so an
-unported parameter fails loudly instead of silently training something
-else.
+categorical features (given to ``Dataset(categorical_feature=...)``; the
+``categorical_feature`` parameter is ignored, as the JAX package ignores
+it outside streaming), every metric but the ranking ones and early
+stopping. Every other feature of the JAX package is FATAL here with a
+message that names it, so an unported parameter fails loudly instead of
+silently training something else.
 """
 from __future__ import annotations
 
@@ -97,9 +99,6 @@ UNPORTED: Dict[str, Capability] = {
     "tree_learner": Capability(
         "distributed tree learners (data, voting, feature)",
         lambda c: c.tree_learner != "serial", {"tree_learner": "data"}),
-    "categorical_features": Capability(
-        "categorical features", lambda c: bool(c.categorical_feature),
-        {"categorical_feature": "0"}),
     "wide_bins": Capability(
         "max_bin > 255 (uint16 bins)",
         lambda c: int(c.max_bin) > 255 or any(

@@ -7,7 +7,9 @@ The port of ``lightgbm_tpu/io/dataset.py`` for dense numeric input: the
 binned matrix is ONE packed ``[n_rows, n_used_features]`` uint8 array
 (every feature has <= 256 bins under ``max_bin <= 255``), built on the
 host with the same bin mappers and the same bytes as the JAX package.
-Sparse, pandas-categorical, file and streamed inputs are not ported yet.
+``categorical_feature`` (indices or names) bins those columns by category
+(bin 0: NaN and unseen categories). Sparse, pandas (category columns
+included), file and streamed inputs are not ported yet.
 """
 from __future__ import annotations
 
@@ -67,6 +69,7 @@ class Dataset:
         self.feature_names: List[str] = []
         self.num_total_features = 0
         self.num_data = 0
+        self.categorical_idx: List[int] = []       # original feature indices
         self.pandas_categorical = None             # model-text field
 
     # ------------------------------------------------------------------
@@ -93,32 +96,48 @@ class Dataset:
             return [str(c) for c in self.data.columns]
         return [f"Column_{i}" for i in range(n_features)]
 
+    def _resolve_categorical(self, names: List[str]) -> List[int]:
+        """``categorical_feature`` as column indices: integers, or names
+        looked up in ``names`` (an unknown name warns); "auto" is none,
+        as numpy input carries no category columns."""
+        cf = self.categorical_feature
+        if cf == "auto" or cf is None:
+            return []
+        out = []
+        for c in cf:
+            if isinstance(c, str):
+                if c in names:
+                    out.append(names.index(c))
+                else:
+                    log.warning(f"categorical_feature {c} not in data")
+            else:
+                out.append(int(c))
+        return out
+
     # ------------------------------------------------------------------
     def construct(self) -> "Dataset":
         if self._constructed:
             return self
-        cf = self.categorical_feature
-        if (cf not in ("auto", None, "") and len(cf)) or \
-                str(self.params.get("categorical_feature", "")).strip():
-            log.fatal("categorical features are not supported by this "
-                      "package yet")
         X = self._to_matrix(self.data)
         self.num_data, self.num_total_features = X.shape
         self._validate_metadata()
         self.feature_names = self._resolve_feature_names(
             self.num_total_features)
+        self.categorical_idx = self._resolve_categorical(self.feature_names)
         if self.reference is not None:
             ref = self.reference.construct()
             self.bin_mappers = ref.bin_mappers
             self.used_features = ref.used_features
             self.feature_names = ref.feature_names
+            self.categorical_idx = ref.categorical_idx
             if self.num_total_features != ref.num_total_features:
                 log.fatal(f"The number of features in data "
                           f"({self.num_total_features}) is not the same as "
                           f"it was in training data "
                           f"({ref.num_total_features})")
         else:
-            self.bin_mappers = mappers_from_params(X, self.params)
+            self.bin_mappers = mappers_from_params(
+                X, self.params, categorical_idx=self.categorical_idx)
             self.used_features = [i for i, m in enumerate(self.bin_mappers)
                                   if not m.is_trivial]
             if len(self.used_features) < self.num_total_features:

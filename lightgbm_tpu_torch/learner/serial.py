@@ -21,7 +21,11 @@ of ``GrowConfig`` the main path sets:
   kept grouped by leaf (``ops/partition.py``), moved once per round by
   the partition-move kernel, and each round's histogram scans only the
   elected children's spans, cut to a power-of-two budget, or the whole
-  partitioned source when the spans would not shrink the scan.
+  partitioned source when the spans would not shrink the scan;
+- categorical splits (``has_categorical``): a split's left set is a
+  bitset over bins, and every row pass (``leaf_id``, the compacted
+  buffer's ids, the partition move) routes a categorical split's rows by
+  a bitset test.
 
 The JAX package's ``lax.while_loop`` becomes a host-driven loop of device
 ops with one host sync per round (the top-k leaf election), plus, under
@@ -29,8 +33,8 @@ the partition, one read of the largest elected span (the budget that the
 JAX package picks on the device with ``lax.switch``). Tree arrays carry
 one trailing TRASH slot (node L-1, leaf L) so inactive batch lanes write
 harmlessly, exactly as in the JAX package, so both produce the same
-arrays. Constraints, EFB, categorical splits, forced splits, rebuild mode
-and the distributed modes are not ported yet.
+arrays. Constraints, EFB, forced splits, rebuild mode and the distributed
+modes are not ported yet.
 """
 from __future__ import annotations
 
@@ -72,6 +76,18 @@ class GrowConfig:
     # the compacted buffer under hist_compact): histograms scan only the
     # elected children's spans
     partition: bool = False
+    # categorical split search (grow_tree's `is_cat` argument)
+    has_categorical: bool = False
+    max_cat_threshold: int = 32
+    cat_smooth: float = 10.0
+    cat_l2: float = 10.0
+    max_cat_to_onehot: int = 4
+    min_data_per_group: int = 100
+
+    @property
+    def cat_words(self) -> int:
+        """32-bit words per categorical bitset (over bins)."""
+        return (self.num_bins + 31) // 32
 
     @property
     def split_config(self) -> SplitConfig:
@@ -80,7 +96,12 @@ class GrowConfig:
             min_data_in_leaf=self.min_data_in_leaf,
             min_sum_hessian_in_leaf=self.min_sum_hessian_in_leaf,
             min_gain_to_split=self.min_gain_to_split,
-            max_delta_step=self.max_delta_step)
+            max_delta_step=self.max_delta_step,
+            has_categorical=self.has_categorical,
+            max_cat_threshold=self.max_cat_threshold,
+            cat_smooth=self.cat_smooth, cat_l2=self.cat_l2,
+            max_cat_to_onehot=self.max_cat_to_onehot,
+            min_data_per_group=self.min_data_per_group)
 
 
 def _top_leaves(gains: torch.Tensor, k: int):
@@ -93,11 +114,15 @@ def _top_leaves(gains: torch.Tensor, k: int):
 def _apply_splits(leaf_vec: torch.Tensor, bins_t: torch.Tensor,
                   leaf_lane: torch.Tensor, feat: torch.Tensor,
                   thr: torch.Tensor, dl: torch.Tensor, new_ids: torch.Tensor,
-                  num_bin: torch.Tensor, has_nan: torch.Tensor
-                  ) -> torch.Tensor:
+                  num_bin: torch.Tensor, has_nan: torch.Tensor,
+                  cat: Optional[torch.Tensor] = None,
+                  bitset: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Route one row set through this round's splits: a row in a split
     leaf moves to the lane's new (right) leaf unless it goes left.
-    ``bins_t`` is the feature-major ``[F, n]`` matrix of those rows."""
+    ``bins_t`` is the feature-major ``[F, n]`` matrix of those rows. With
+    ``cat`` ``[Kb]`` / ``bitset`` ``[Kb, W]`` a categorical lane sends a
+    row left iff bit ``col & 31`` of word ``col >> 5`` is set (NaN and
+    unseen categories, bin 0, are never in the set)."""
     lane = leaf_lane[leaf_vec.to(torch.int64)]                # [n], -1 = none
     sel = lane >= 0
     ln = lane.clamp(min=0)
@@ -106,6 +131,11 @@ def _apply_splits(leaf_vec: torch.Tensor, bins_t: torch.Tensor,
     nb_r = num_bin[feat_r]
     missing = has_nan[feat_r] & (col == nb_r - 1)
     goes_left = torch.where(missing, dl[ln], col <= thr[ln])
+    if cat is not None:
+        W = bitset.shape[1]
+        word = bitset.reshape(-1)[ln * W + (col >> 5).to(torch.int64)]
+        cat_left = ((word >> (col & 31).to(torch.int64)) & 1) > 0
+        goes_left = torch.where(cat[ln], cat_left, goes_left)
     return torch.where(sel & ~goes_left, new_ids[ln], leaf_vec)
 
 
@@ -113,7 +143,8 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
               feat_num_bin: torch.Tensor, feat_has_nan: torch.Tensor,
               allowed_feature: torch.Tensor, cfg: GrowConfig,
               chan_scale: Optional[torch.Tensor] = None,
-              compact_bins_t: Optional[torch.Tensor] = None
+              compact_bins_t: Optional[torch.Tensor] = None,
+              is_cat: Optional[torch.Tensor] = None
               ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Grow one tree.
 
@@ -130,11 +161,15 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
       compact_bins_t: ``[F, n_c]`` uint8 compacted buffer — with
         ``cfg.hist_compact`` the histograms scan it (its per-row values
         are ``vals``) while ``leaf_id`` covers all rows.
+      is_cat: ``[F]`` bool categorical features; read only when
+        ``cfg.has_categorical``.
 
     Returns:
       (tree dict of fixed-size arrays + ``num_leaves`` + ``hist_rows``,
       per-row leaf_id ``[n]`` int32) — the same arrays as the JAX
-      package's grow_tree. ``hist_rows`` (a host ``np.float32``, summed
+      package's grow_tree; with ``cfg.has_categorical`` also ``is_cat``
+      ``[L-1]`` and ``cat_bitset`` ``[L-1, W]`` (int64 words holding the
+      uint32 bit patterns). ``hist_rows`` (a host ``np.float32``, summed
       in float32 like the JAX package's) counts the rows the histogram
       scans touched: the source's n once per scan on the masked path,
       the padded spans under the partition.
@@ -159,13 +194,21 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
     def hist_multi(leaf_ids, small_ids):
         return hist_of(h_bins_t, h_vals_t, leaf_ids, small_ids)
 
-    def leaf_out(sums):
+    def leaf_out(sums, l2=cfg.lambda_l2):
         return calc_leaf_output(sums[..., 0], sums[..., 1], cfg.lambda_l1,
-                                cfg.lambda_l2, cfg.max_delta_step)
+                                l2, cfg.max_delta_step)
+
+    categorical = cfg.has_categorical and is_cat is not None
+    W = cfg.cat_words
+    # the categorical scan reads those features' histograms only (one
+    # host sync a tree)
+    cat_idx = torch.nonzero(is_cat)[:, 0] if categorical else None
 
     def search_best(hists, sums):
         return find_best_split(hists, sums, feat_num_bin, feat_has_nan,
-                               allowed_feature, scfg)
+                               allowed_feature, scfg,
+                               is_cat=is_cat if categorical else None,
+                               cat_idx=cat_idx)
 
     # ---- root ----------------------------------------------------------
     leaf_id = torch.zeros(n_rows, dtype=i32, device=dev)
@@ -196,6 +239,14 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
     best_lr_sums = torch.zeros((L + 1, 2, 3), dtype=f32, device=dev)
     best_lr_sums[0, 0] = root_best["left_sums"][0]
     best_lr_sums[0, 1] = root_best["right_sums"][0]
+    if categorical:
+        best_is_cat = torch.zeros(L + 1, dtype=torch.bool, device=dev)
+        best_is_cat[0] = root_best["is_cat"][0]
+        best_cat_bitset = torch.zeros((L + 1, W), dtype=torch.int64,
+                                      device=dev)
+        best_cat_bitset[0] = root_best["cat_bitset"][0]
+        node_is_cat = torch.zeros(L, dtype=torch.bool, device=dev)
+        node_cat_bitset = torch.zeros((L, W), dtype=torch.int64, device=dev)
     split_feature = torch.zeros(L, dtype=i32, device=dev)
     threshold_bin = torch.zeros(L, dtype=i32, device=dev)
     default_left = torch.zeros(L, dtype=torch.bool, device=dev)
@@ -256,6 +307,11 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         dl_sel = best_default_left[tl_safe]
         lr_sel = best_lr_sums[tl_safe]                      # [Kb, 2, 3]
         lsums, rsums = lr_sel[:, 0], lr_sel[:, 1]
+        route = {}
+        if categorical:
+            cat_sel = best_is_cat[tl_safe]
+            bs_sel = best_cat_bitset[tl_safe]
+            route = dict(cat=cat_sel, bitset=bs_sel)
 
         # ---- partition: apply all selected splits in one row pass ------
         leaf_lane = torch.full((L + 1,), -1, dtype=torch.int64, device=dev)
@@ -263,20 +319,20 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         new_i32 = new_ids.to(i32)
         leaf_id = _apply_splits(leaf_id, bins_t, leaf_lane, feat_sel,
                                 thr_sel, dl_sel, new_i32, feat_num_bin,
-                                feat_has_nan)
+                                feat_has_nan, **route)
         # under the partition the compacted buffer's masked ids are dead
         # (histograms read the partition's ids): skip their pass
         if compact and not cfg.partition:
             leaf_id_c = _apply_splits(leaf_id_c, h_bins_t, leaf_lane,
                                       feat_sel, thr_sel, dl_sel, new_i32,
-                                      feat_num_bin, feat_has_nan)
+                                      feat_num_bin, feat_has_nan, **route)
 
         # ---- leaf-ordered repartition: one stable front/back move ------
         if cfg.partition:
             p_bins, p_vals, p_leaf = part
             leaf_mv = _apply_splits(p_leaf, p_bins, leaf_lane, feat_sel,
                                     thr_sel, dl_sel, new_i32, feat_num_bin,
-                                    feat_has_nan)
+                                    feat_has_nan, **route)
             nxt = 1 if cur == 0 else 0
             if bufs[nxt] is None:
                 bufs[nxt] = (torch.empty_like(p_bins),
@@ -323,6 +379,12 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         depth2 = leaf_depth[tl_safe] + 1
         lvals = leaf_out(lsums)
         rvals = leaf_out(rsums)
+        if categorical:
+            # a categorical split's children are regularized with
+            # lambda_l2 + cat_l2, as its gain was
+            l2c = cfg.lambda_l2 + cfg.cat_l2
+            lvals = torch.where(cat_sel, leaf_out(lsums, l2c), lvals)
+            rvals = torch.where(cat_sel, leaf_out(rsums, l2c), rvals)
         psums = leaf_sums[tl_safe]
 
         # ---- best splits for all 2*Kb children -------------------------
@@ -350,6 +412,11 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         best_default_left[ids2] = bests["default_left"]
         best_lr_sums[ids2] = torch.stack([bests["left_sums"],
                                           bests["right_sums"]], dim=1)
+        if categorical:
+            best_is_cat[ids2] = bests["is_cat"]
+            best_cat_bitset[ids2] = bests["cat_bitset"]
+            node_is_cat[node_ids] = cat_sel
+            node_cat_bitset[node_ids] = bs_sel
         split_feature[node_ids] = feat_sel
         threshold_bin[node_ids] = thr_sel
         default_left[node_ids] = dl_sel
@@ -381,4 +448,9 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         "leaf_weight": leaf_vcw[:L, 2],
         "hist_rows": rows_scanned,
     }
+    if categorical:
+        # only with categorical features, so the numerical path's arrays
+        # (and its model text) stay as they were
+        tree["is_cat"] = node_is_cat[:nn]
+        tree["cat_bitset"] = node_cat_bitset[:nn]
     return tree, leaf_id

@@ -12,7 +12,9 @@ of steps is the forest's depth, computed on the host, so the loop needs no
 device sync. Tree t of a multiclass forest belongs to class t % K (K trees
 an iteration, in class order); per-class scores add the trees' leaf values
 in tree order, as the JAX package does, so float32 sums agree bit for
-bit.
+bit. Where the forest carries ``is_cat`` / ``cat_bitset``, a categorical
+node sends a row left iff its bin's bit is set in the node's bitset, so
+NaN and unseen categories (bin 0) go right.
 """
 from __future__ import annotations
 
@@ -30,7 +32,9 @@ def forest_predict_binned(stacked: Dict[str, torch.Tensor],
 
     Args:
       stacked: tree arrays with a leading ``[T]`` axis, node arrays padded
-        to ``[T, Ln]`` and ``leaf_value`` to ``[T, L]``.
+        to ``[T, Ln]`` and ``leaf_value`` to ``[T, L]``; optionally
+        ``is_cat`` ``[T, Ln]`` and ``cat_bitset`` ``[T, Ln, W]`` (int64
+        words holding uint32 bit patterns).
       bins: ``[n, F]`` uint8 binned features.
       max_depth: the forest's depth (``Tree.leaf_depths``' maximum).
       num_class: K > 0 sums tree t into class ``(first_tree + t) % K``
@@ -55,6 +59,11 @@ def forest_predict_binned(stacked: Dict[str, torch.Tensor],
                        torch.zeros((T, n), dtype=torch.int64, device=dev),
                        torch.full((T, n), -1, dtype=torch.int64, device=dev))
     rows = torch.arange(n, device=dev)[None, :]
+    has_cat = "is_cat" in stacked
+    if has_cat:
+        W = stacked["cat_bitset"].shape[2]
+        bitset = stacked["cat_bitset"].to(torch.int64).reshape(T, Ln * W)
+        node_cat = stacked["is_cat"]
     for _ in range(max_depth):
         nd = node.clamp(min=0)
         feat = torch.gather(sf, 1, nd)                        # [T, n]
@@ -62,6 +71,12 @@ def forest_predict_binned(stacked: Dict[str, torch.Tensor],
         go_left = torch.where(col == torch.gather(nan_bin, 1, nd),
                               torch.gather(dl, 1, nd),
                               col <= torch.gather(thr, 1, nd))
+        if has_cat:
+            word = torch.gather(bitset, 1, nd * W + (col >> 5).to(
+                torch.int64))
+            cat_left = ((word >> (col & 31).to(torch.int64)) & 1) > 0
+            go_left = torch.where(torch.gather(node_cat, 1, nd), cat_left,
+                                  go_left)
         nxt = torch.where(go_left, torch.gather(lc, 1, nd),
                           torch.gather(rc, 1, nd))
         node = torch.where(node >= 0, nxt, node)

@@ -6,22 +6,28 @@ mount, see SURVEY.md banner): a left-to-right threshold scan per feature,
 both missing-value directions, L1/L2-regularized gain, constraints
 ``min_data_in_leaf``, ``min_sum_hessian_in_leaf``, ``min_gain_to_split``.
 
-The port of the numerical path of ``lightgbm_tpu/ops/split.py``: the scans
-are one prefix sum over the bin axis for every feature of every leaf at
-once, with both missing directions stacked, and an argmax over
-``[features, bins, directions]``. Functions take any leading batch shape
-(the JAX package vmaps over leaves; here the batch dims are written out).
+The port of ``lightgbm_tpu/ops/split.py``'s numerical and categorical
+paths: the numerical scan is one prefix sum over the bin axis for every
+feature of every leaf at once, with both missing directions stacked, and
+an argmax over ``[features, bins, directions]``; categorical features
+(``SplitConfig.has_categorical``) scan one-vs-rest below
+``max_cat_to_onehot`` categories, else prefixes of the bins sorted by
+``grad / (hess + cat_smooth)`` in both directions, and the winner is a
+``[ceil(B/32)]`` bitset of left bins. Functions take any leading batch
+shape (the JAX package vmaps over leaves; here the batch dims are written
+out).
 
 Every float operation repeats the JAX package's on its CPU backend in the
 same order, so identical histograms give bit-identical splits: the prefix
-sum is XLA's blocked scan (``_cumsum_bins``), and the gains are the same
-element-wise expressions. Categorical, monotone, CEGB, path-smoothing,
-extra-trees and feature-contribution variants are not ported yet.
+sums are XLA's blocked scan (``_cumsum_bins``), the sorts are stable, and
+the gains are the same element-wise expressions. Monotone, CEGB,
+path-smoothing, extra-trees and feature-contribution variants are not
+ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -68,6 +74,15 @@ class SplitConfig:
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
+    # categorical split search: one-vs-rest at most max_cat_to_onehot
+    # categories, else sorted many-vs-many by grad / (hess + cat_smooth)
+    # with cat_l2 added to the L2 term and min_data_per_group per child
+    has_categorical: bool = False
+    max_cat_threshold: int = 32
+    cat_smooth: float = 10.0
+    cat_l2: float = 10.0
+    max_cat_to_onehot: int = 4
+    min_data_per_group: int = 100
 
 
 def threshold_l1(s: torch.Tensor, l1: float) -> torch.Tensor:
@@ -141,6 +156,134 @@ def _numerical_candidates(hist, parent_sums, num_bin, has_nan, num_allowed,
     return torch.where(valid, gain, NEG_INF), left
 
 
+def _pack_bitset(inset: torch.Tensor) -> torch.Tensor:
+    """Pack a ``[..., B]`` bool left-set into ``[..., ceil(B/32)]`` words:
+    int64 holding the uint32 bit patterns of the JAX package's words."""
+    B = inset.shape[-1]
+    W = (B + 31) // 32
+    if W * 32 > B:
+        inset = torch.cat([inset, inset.new_zeros(
+            inset.shape[:-1] + (W * 32 - B,))], dim=-1)
+    shifts = torch.arange(32, dtype=torch.int64, device=inset.device)
+    words = inset.reshape(inset.shape[:-1] + (W, 32)).to(torch.int64) \
+        << shifts
+    return words.sum(dim=-1)
+
+
+def _categorical_candidates(hist, parent_sums, num_bin, cat_allowed,
+                            cfg: SplitConfig):
+    """Candidate categorical gains ``[..., Fc, 3, B]`` over the modes
+    (one-hot, sorted ascending, sorted descending), the two sort orders
+    ``[..., Fc, 2, B]``, the sorted prefix sums ``[..., Fc, 2, B, 3]`` and
+    the valid bins ``[..., Fc, B]``.
+
+    hist ``[..., Fc, B, 3]``, parent_sums ``[..., 3]``, num_bin ``[Fc]``,
+    cat_allowed ``[..., Fc]`` (or ``[Fc]``): the features scanned here and
+    allowed in this leaf. Bin 0 (NaN and unseen categories) never enters
+    a left set."""
+    B = hist.shape[-2]
+    dev = hist.device
+    bin_idx = torch.arange(B, dtype=torch.int32, device=dev)
+    cnt = hist[..., 2]
+    l1, l2c = cfg.lambda_l1, cfg.lambda_l2 + cfg.cat_l2
+    pg, ph, pc = (parent_sums[..., i] for i in range(3))
+    parent_gain = leaf_gain(pg, ph, l1, l2c)
+    min_cnt = float(max(cfg.min_data_in_leaf, cfg.min_data_per_group))
+    valid_bin = ((bin_idx >= 1) & (bin_idx < num_bin[:, None]) & (cnt > 0)
+                 & cat_allowed[..., None])                     # [..., Fc, B]
+
+    def child_gain(lg, lh, lc, extra_dims):
+        # parent sums broadcast over [Fc, B] (+ the sort direction)
+        def p(a):
+            return a.reshape(a.shape + (1,) * extra_dims)
+        rg, rh, rc = p(pg) - lg, p(ph) - lh, p(pc) - lc
+        g = (leaf_gain(lg, lh, l1, l2c) + leaf_gain(rg, rh, l1, l2c)
+             - p(parent_gain))
+        ok = ((lc >= min_cnt) & (rc >= min_cnt)
+              & (lh >= cfg.min_sum_hessian_in_leaf)
+              & (rh >= cfg.min_sum_hessian_in_leaf)
+              & (g > cfg.min_gain_to_split))
+        return torch.where(ok, g, NEG_INF)
+
+    # ---- one-hot (one category vs rest) ----------------------------
+    use_onehot = (num_bin - 1) <= cfg.max_cat_to_onehot       # [Fc]
+    gain_oh = child_gain(hist[..., 0], hist[..., 1], cnt, 2)
+    gain_oh = torch.where(valid_bin & use_onehot[:, None], gain_oh, NEG_INF)
+
+    # ---- sorted many-vs-many ---------------------------------------
+    # stable sorts (jnp.argsort's); invalid bins sort last both ways
+    ratio = torch.where(valid_bin, hist[..., 0] / (hist[..., 1]
+                                                   + cfg.cat_smooth),
+                        float("inf"))
+    order_asc = torch.sort(ratio, dim=-1, stable=True).indices
+    order_desc = torch.sort(torch.where(valid_bin, -ratio, float("inf")),
+                            dim=-1, stable=True).indices
+    orders = torch.stack([order_asc, order_desc], dim=-2)     # [..., Fc, 2, B]
+    src = hist.unsqueeze(-3).expand(hist.shape[:-2] + (2, B, 3))
+    sorted_hist = torch.gather(src, -2, orders[..., None].expand(
+        orders.shape + (3,)))                             # [..., Fc, 2, B, 3]
+    sorted_valid = torch.gather(
+        valid_bin.unsqueeze(-2).expand(orders.shape), -1, orders)
+    cum = _cumsum_bins(sorted_hist)
+    # a prefix is valid while every bin in it is (jnp.cumprod of the flags)
+    prefix_ok = torch.cumsum((~sorted_valid).to(torch.int32), dim=-1) == 0
+    gain_sorted = child_gain(cum[..., 0], cum[..., 1], cum[..., 2], 3)
+    gain_sorted = torch.where(
+        prefix_ok & (bin_idx < cfg.max_cat_threshold)
+        & ~use_onehot[:, None, None] & cat_allowed[..., None, None],
+        gain_sorted, NEG_INF)                                 # [..., Fc, 2, B]
+    all_gain = torch.cat([gain_oh.unsqueeze(-2), gain_sorted], dim=-2)
+    return all_gain, orders, cum, valid_bin
+
+
+def _categorical_best(hist, parent_sums, num_bin, cat_allowed,
+                      cfg: SplitConfig):
+    """Best categorical split of each leaf (reference:
+    ``FindBestThresholdCategoricalInner``, through the JAX package's
+    ``_categorical_best``). Ties go to the first index of the flattened
+    ``[Fc, 3, B]`` candidates. Returns (gain ``[...]``, feature ``[...]``
+    (an index into the scanned features), left sums ``[..., 3]``, left
+    set ``[..., B]`` bool over bins)."""
+    B = hist.shape[-2]
+    dev = hist.device
+    all_gain, orders, cum, valid_bin = _categorical_candidates(
+        hist, parent_sums, num_bin, cat_allowed, cfg)
+    flat = all_gain.flatten(-3)
+    best = torch.argmax(flat, dim=-1, keepdim=True)
+    best_gain = torch.gather(flat, -1, best)[..., 0]
+    best = best[..., 0]
+    feature = best // (3 * B)
+    mode = (best // B) % 3                                    # 0 one-hot
+    j = best % B
+    bin_idx = torch.arange(B, device=dev)
+    onehot_inset = bin_idx == j[..., None]                    # [..., B]
+
+    def at_feature(a):
+        # a[..., feature, ...] for each leaf
+        idx = feature.reshape(feature.shape + (1,) * (a.dim()
+                                                      - feature.dim()))
+        idx = idx.expand(feature.shape + (1,) + a.shape[feature.dim() + 1:])
+        return torch.gather(a, feature.dim(), idx).squeeze(feature.dim())
+
+    direction = (mode - 1).clamp(min=0)
+    order_f, cum_f = at_feature(orders), at_feature(cum)     # [..., 2, B(,3)]
+    d_idx = direction[..., None, None]
+    order_w = torch.gather(order_f, -2, d_idx.expand(
+        direction.shape + (1, B)))[..., 0, :]                 # [..., B]
+    inv = torch.empty_like(order_w).scatter_(
+        -1, order_w, bin_idx.expand(order_w.shape).contiguous())
+    sorted_inset = (inv <= j[..., None]) & at_feature(valid_bin)
+    inset = torch.where((mode == 0)[..., None], onehot_inset, sorted_inset)
+    left_oh = torch.gather(at_feature(hist), -2, j[..., None, None].expand(
+        j.shape + (1, 3)))[..., 0, :]
+    cum_d = torch.gather(cum_f, -3, d_idx[..., None].expand(
+        direction.shape + (1, B, 3)))[..., 0, :, :]           # [..., B, 3]
+    left_sorted = torch.gather(cum_d, -2, j[..., None, None].expand(
+        j.shape + (1, 3)))[..., 0, :]
+    left_sums = torch.where((mode == 0)[..., None], left_oh, left_sorted)
+    return best_gain, feature, left_sums, inset
+
+
 def per_feature_gains(hist, parent_sums, num_bin, has_nan, allowed_feature,
                       cfg: SplitConfig) -> torch.Tensor:
     """Best achievable gain per feature ``[..., F]`` — the local vote of
@@ -168,7 +311,9 @@ def elect_best(gathered: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 def find_best_split(hist: torch.Tensor, parent_sums: torch.Tensor,
                     num_bin: torch.Tensor, has_nan: torch.Tensor,
                     allowed_feature: torch.Tensor,
-                    cfg: SplitConfig) -> Dict[str, torch.Tensor]:
+                    cfg: SplitConfig, is_cat: Optional[torch.Tensor] = None,
+                    cat_idx: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Best split of each leaf given its histogram.
 
     Args:
@@ -178,15 +323,26 @@ def find_best_split(hist: torch.Tensor, parent_sums: torch.Tensor,
       has_nan: ``[F]`` bool — whether the LAST used bin is the NaN bin.
       allowed_feature: ``[F]`` or ``[..., F]`` bool column mask.
       cfg: static hyperparameters.
+      is_cat: ``[F]`` bool categorical features and ``cat_idx`` their
+        ``[Fc]`` int64 indices, whose histograms alone the categorical
+        scan reads (the JAX package's ``cat_positions``); read only when
+        ``cfg.has_categorical``.
 
     Returns dict of ``[...]`` tensors: ``gain`` (−inf if no valid split),
     ``feature``, ``threshold_bin`` (split sends ``bin <= t`` left),
-    ``default_left``, and ``left_sums`` / ``right_sums`` (``[..., 3]``).
-    Ties go to the first candidate in (feature, bin, direction) order.
+    ``default_left``, and ``left_sums`` / ``right_sums`` (``[..., 3]``);
+    with ``cfg.has_categorical`` also ``is_cat`` (a categorical split?)
+    and ``cat_bitset`` (``[..., ceil(B/32)]`` int64 words holding the
+    uint32 left set over bins). Numerical ties go to the first candidate
+    in (feature, bin, direction) order; a categorical split wins only
+    with a strictly larger gain.
     """
     B = hist.shape[-2]
+    categorical = cfg.has_categorical and cat_idx is not None
+    num_allowed = allowed_feature & ~is_cat if categorical \
+        else allowed_feature
     gain, left = _numerical_candidates(hist, parent_sums, num_bin, has_nan,
-                                       allowed_feature, cfg)
+                                       num_allowed, cfg)
     flat = gain.flatten(-3)                                   # [..., F*B*2]
     best = torch.argmax(flat, dim=-1, keepdim=True)
     best_gain = torch.gather(flat, -1, best)[..., 0]
@@ -198,12 +354,28 @@ def find_best_split(hist: torch.Tensor, parent_sums: torch.Tensor,
     left_best = torch.gather(
         left_flat, -2, best[..., None, None].expand(
             best.shape + (1, 3)))[..., 0, :]
-    return {
+    out = {}
+    if categorical:
+        cgain, cfeat, cleft, cinset = _categorical_best(
+            hist.index_select(-3, cat_idx), parent_sums, num_bin[cat_idx],
+            allowed_feature.index_select(-1, cat_idx), cfg)
+        cfeat = cat_idx[cfeat]
+        take_cat = cgain > best_gain
+        best_gain = torch.maximum(best_gain, cgain)
+        feature = torch.where(take_cat, cfeat.to(torch.int32), feature)
+        threshold_bin = torch.where(take_cat, 0, threshold_bin)
+        default_left = default_left & ~take_cat
+        left_best = torch.where(take_cat[..., None], cleft, left_best)
+        out["is_cat"] = take_cat
+        out["cat_bitset"] = torch.where(take_cat[..., None],
+                                        _pack_bitset(cinset), 0)
+    out.update({
         "gain": best_gain,
         "feature": feature,
         "threshold_bin": threshold_bin,
         "default_left": default_left,
         "left_sums": left_best,
         "right_sums": parent_sums - left_best,
-    }
+    })
+    return out
 

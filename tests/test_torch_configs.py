@@ -18,6 +18,7 @@ import pytest
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
+from test_torch_regression import _one_torch_thread  # noqa
 from test_torch_train import JaxReplayNoise, _reference_metrics_off  # noqa
 
 ROUNDS = 6

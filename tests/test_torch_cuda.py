@@ -704,3 +704,125 @@ def test_quantize_on_the_card_equals_the_cpu(cuda_device, levels):
                                             / np.float32(levels))
     for a, b in zip(out["cuda"], out["cpu"]):
         assert torch.equal(a.cpu(), b)
+
+
+def _guard_data(n, seed=7):
+    """Guard-shaped rows (``bench.py::synth_guard`` with a 3-way column
+    and 10% NaN in the categorical columns 10, 11, 12) and a 0/1 label."""
+    rng = np.random.default_rng(seed)
+    Xn = rng.normal(size=(n, 10))
+    cats = [rng.integers(0, k, size=n) for k in (12, 40, 3)]
+    logit = (Xn[:, 0] * Xn[:, 1] + 0.9 * Xn[:, 2] * Xn[:, 3]
+             + rng.normal(size=12)[cats[0]] * 1.2
+             + rng.normal(size=40)[cats[1]] * 0.8
+             + np.array([0.5, -0.6, 0.2])[cats[2]])
+    Xn[rng.uniform(size=(n, 10)) < 0.1 * (np.arange(10) < 5)] = np.nan
+    y = (logit + rng.normal(size=n) > 0).astype(np.float64)
+    X = np.column_stack([Xn] + cats).astype(np.float64)
+    for j in (10, 11, 12):
+        X[rng.uniform(size=n) < 0.1, j] = np.nan
+    return X, y
+
+
+# path -> (training rows, params); GOSS starts at iteration 1/lr = 3
+CATEGORICAL_PATHS = {
+    "masked": (5000, {}),
+    "partition": (5000, {"tpu_hist_partition": "true"}),
+    "goss": (16_000, {"data_sample_strategy": "goss", "top_rate": 0.1,
+                      "other_rate": 0.05, "tpu_goss_compact": True}),
+}
+
+
+@pytest.mark.parametrize("path", list(CATEGORICAL_PATHS))
+def test_categorical_training_card_matches_cpu(cuda_device, path):
+    """Binary training with three categorical columns on the card and on
+    the CPU from the same data and draws: identical split lines (with
+    categorical splits), predictions within 1e-5, on the masked path, the
+    row partition (the move B′ routes rows by bitset) and GOSS with the
+    compacted buffer."""
+    import lightgbm_tpu_torch as lgt
+    n, extra = CATEGORICAL_PATHS[path]
+    X, y = _guard_data(n + 1000)
+    keys = ("split_feature", "threshold", "decision_type", "left_child",
+            "right_child", "num_leaves")
+    out = {}
+    move0 = tp.partition_move.launches
+    for dev in ("cuda", "cpu"):
+        bst = lgt.train(dict({"objective": "binary", "num_leaves": 15,
+                              "learning_rate": 0.3, "tpu_leaf_batch": 4,
+                              "use_quantized_grad": True,
+                              "stochastic_rounding": False,
+                              "min_data_per_group": 50, "verbosity": -1,
+                              "device_type": dev}, **extra),
+                        lgt.Dataset(X[:n], label=y[:n],
+                                    categorical_feature=[10, 11, 12]),
+                        num_boost_round=6, noise=_SameDraws(dev))
+        assert bst.engine.has_categorical
+        out[dev] = ([ln for ln in bst.model_to_string().splitlines()
+                     if ln.split("=", 1)[0] in keys], bst.predict(X[n:]))
+    if path == "partition":
+        assert tp.partition_move.launches > move0
+    cat_nodes = sum(int(v) & 1 for ln in out["cpu"][0]
+                    if ln.startswith("decision_type=")
+                    for v in ln.split("=", 1)[1].split())
+    assert cat_nodes > 0
+    assert out["cuda"][0] == out["cpu"][0]
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0,
+                               atol=1e-5)
+
+
+def test_bitset_routing_on_the_card_equals_the_cpu(cuda_device):
+    """``_apply_splits`` and ``forest_predict_binned`` with categorical
+    nodes (bitsets with bit 31 set, bin 0 never in a set) give the same
+    leaf ids on the card as on the CPU."""
+    from lightgbm_tpu_torch.learner.serial import _apply_splits
+    from lightgbm_tpu_torch.ops.predict import forest_predict_binned
+    rng = np.random.default_rng(1)
+    n, F, B, Kb, T, Ln = 50_000, 6, 64, 4, 3, 7
+    W = B // 32
+    nb = np.full(F, B, np.int32)
+    bins = rng.integers(0, B, size=(n, F)).astype(np.uint8)
+    words = rng.integers(0, 2 ** 32, size=(Kb, W), dtype=np.int64)
+    words[:, 0] &= ~1                                 # bin 0 misses
+    words[:, -1] |= 1 << 31
+    cpu = dict(
+        leaf=rng.integers(0, 8, size=n).astype(np.int32),
+        lane=np.array([0, -1, 1, 2, -1, 3, -1, -1, -1], np.int64),
+        feat=rng.integers(0, F, size=Kb).astype(np.int32),
+        thr=rng.integers(0, B, size=Kb).astype(np.int32),
+        dl=rng.random(Kb) < 0.5, new=np.arange(8, 8 + Kb, dtype=np.int32),
+        cat=np.array([True, False, True, True]), bitset=words)
+    fb = rng.integers(0, 2 ** 32, size=(T, Ln, W), dtype=np.int64)
+    fb[..., 0] &= ~1
+    lc = np.array([1, 3, -3, 5, -5, -6, -7])
+    rc = np.array([2, -2, 4, -4, 6, -1, -8])
+    forest = dict(num_leaves=np.full(T, 8, np.int32),
+                  split_feature=rng.integers(0, F, size=(T, Ln))
+                  .astype(np.int32),
+                  threshold_bin=rng.integers(0, B, size=(T, Ln))
+                  .astype(np.int32),
+                  default_left=rng.random((T, Ln)) < 0.5,
+                  left_child=np.tile(lc, (T, 1)).astype(np.int32),
+                  right_child=np.tile(rc, (T, 1)).astype(np.int32),
+                  leaf_value=rng.normal(size=(T, 8)).astype(np.float32),
+                  is_cat=rng.random((T, Ln)) < 0.6, cat_bitset=fb)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in cpu.items()}
+        b = torch.from_numpy(bins).to(dev)
+        leaf = _apply_splits(t["leaf"], b.T.contiguous(), t["lane"],
+                             t["feat"], t["thr"], t["dl"], t["new"],
+                             torch.from_numpy(nb).to(dev),
+                             torch.zeros(F, dtype=torch.bool, device=dev),
+                             cat=t["cat"], bitset=t["bitset"])
+        fs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+              for k, v in forest.items()}
+        raw, leaves = forest_predict_binned(
+            fs, b, torch.from_numpy(nb).to(dev),
+            torch.zeros(F, dtype=torch.bool, device=dev), 4)
+        res[dev] = (leaf.cpu(), raw.cpu(), leaves.cpu())
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert torch.equal(a, b)
+    moved = res["cpu"][0] != torch.from_numpy(cpu["leaf"])
+    assert 0 < int(moved.sum()) < n

@@ -20,6 +20,19 @@ from lightgbm_tpu.ops import partition as jax_part
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.ops import partition as part
 from test_torch_grow import POW2_SCALE, _grow_both
+from test_torch_regression import _one_torch_thread  # noqa
+
+_GROWN = {}
+
+
+def _grown(leaf_batch, compact, partition=False):
+    """``_grow_both`` at the power-of-two scale, run once per arguments in
+    this module (the tests only read its arrays)."""
+    key = (leaf_batch, compact, partition)
+    if key not in _GROWN:
+        _GROWN[key] = _grow_both(leaf_batch, compact, POW2_SCALE,
+                                 partition=partition)
+    return _GROWN[key]
 
 
 def _t(a):
@@ -187,8 +200,7 @@ def test_move_cols_cpu_equals_move_rows_xla(frac):
 @pytest.mark.parametrize("compact", [False, True])
 @pytest.mark.parametrize("leaf_batch", [1, 8])
 def test_grow_tree_partition_bit_equal(leaf_batch, compact):
-    jt, jl, tt, tl = _grow_both(leaf_batch, compact, POW2_SCALE,
-                                partition=True)
+    jt, jl, tt, tl = _grown(leaf_batch, compact, partition=True)
     assert int(tt["num_leaves"]) > 20
     assert set(tt) == set(jt)
     for k, v in tt.items():
@@ -202,9 +214,8 @@ def test_grow_tree_partition_bit_equal(leaf_batch, compact):
 def test_grow_tree_partition_scans_fewer_rows(leaf_batch, compact):
     """Same tree as the masked scan, fewer rows scanned; the masked
     count is the source's rows x (rounds + 1)."""
-    _, _, masked, ml = _grow_both(leaf_batch, compact, POW2_SCALE)
-    _, _, parted, pl = _grow_both(leaf_batch, compact, POW2_SCALE,
-                                  partition=True)
+    _, _, masked, ml = _grown(leaf_batch, compact)
+    _, _, parted, pl = _grown(leaf_batch, compact, partition=True)
     for k in masked:
         if k != "hist_rows":
             np.testing.assert_array_equal(parted[k], masked[k], err_msg=k)
