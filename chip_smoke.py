@@ -77,17 +77,34 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
    their plain versions; then a 20k-row guard-shaped set (with a 3-way
    column and NaN in the categorical columns) on the three paths, binary
    on quantized and exact gradients and 3-class multiclass, on the card
-   and on the CPU.
+   and on the CPU;
+10. learning to rank: the MSLR-Web30K shape of ``benchmarks/suite.py``'s
+   ``bench_mslr`` (4,096 training queries of 122 documents, 136
+   features, relevance 0-4, lambdarank, 127 leaves, 1,024 queries held
+   out) on the masked path with exact gradients (kernel A in f32 mode)
+   and quantized (int mode), GOSS with compaction (B at 136 bin rows)
+   and the forced partition (B′), 10 rounds each (GOSS 10 more first),
+   then rank_xendcg and ``lambdarank_unbiased`` for 5; each traced, with
+   holdout ndcg@1, 3, 5 and 10 and the gradient's device ms; the
+   partition's text byte-equal to the quantized masked run's; one more
+   quantized iteration's kernel-A calls, a compaction and the partition
+   moves at F = 136 held against their plain versions; MSLR-Web30K
+   Fold 1's query-length spread (18,919 queries, 2.27M rows, the longest
+   1,251 documents) for 5 rounds: host binning time, it/s, the
+   gradient's device ms and peak memory, and the share of the padded
+   pair work on real documents; then lambdarank (quantized and exact),
+   rank_xendcg and position-debiased lambdarank on a 20k-row ranking set
+   on the three paths, on the card and on the CPU.
 
 Each training run sets the kernels' launch counts to 0 just before it
 and reads them just after. The last two lines of standard output are the
 per-kernel JSON line and the result line ``{"ok": true, "device":
 {...}}``; any failure exits non-zero before the result line.
 ``--json-out PATH`` also writes the per-kernel record, replay included,
-to PATH; ``--only-probes``, ``--only-sweep``, ``--only-objectives`` and
-``--only-categorical`` build the kernels, run phase 3, 7, 8 or 9 and stop
-(no result line). It needs a CUDA device and imports neither JAX nor
-``lightgbm_tpu``.
+to PATH; ``--only-probes``, ``--only-sweep``, ``--only-objectives``,
+``--only-categorical`` and ``--only-ranking`` build the kernels, run phase
+3, 7, 8, 9 or 10 and stop (no result line). It needs a CUDA device and
+imports neither JAX nor ``lightgbm_tpu``.
 """
 import json
 import math
@@ -231,6 +248,41 @@ PROBE_1D_EXTRA = "probe1d_"
 # (chip_variants.py --probe-extras writes them)
 PROBE_1D_SPLIT = ("probe1d_no_adds", "probe1d_no_reduce",
                   "probe1d_no_adds_no_reduce")
+# the ranking phase: the MSLR-Web30K shape of benchmarks/suite.py::bench_mslr
+# (:31-56) at its own size and settings: 4,096 training queries of 122
+# documents, 136 features, relevance 0-4, lambdarank, 127 leaves; 1,024
+# more queries of the same generator held out whole
+N_MSLR_QUERIES, N_MSLR_TRAIN_QUERIES, MSLR_DOCS, MSLR_F = 5120, 4096, 122, 136
+MSLR_ROUNDS, MSLR_SIDE_ROUNDS = 10, 5
+MSLR_PARAMS = {"objective": "lambdarank", "num_leaves": 127, "max_bin": 255,
+               "learning_rate": 0.1, "eval_at": [1, 3, 5, 10],
+               "verbosity": -1, "device_type": "cuda"}
+MSLR_PATHS = {
+    "masked": {"tpu_hist_partition": "false"},
+    "quantized": {"use_quantized_grad": True, "tpu_hist_partition": "false"},
+    "goss": {"use_quantized_grad": True, "data_sample_strategy": "goss",
+             "tpu_goss_compact": True, "tpu_hist_partition": "false"},
+    "partition": {"use_quantized_grad": True, "tpu_hist_partition": "true"},
+}
+# the other objectives on the masked path, MSLR_SIDE_ROUNDS rounds each
+MSLR_SIDE = {"rank_xendcg": {"objective": "rank_xendcg"},
+             "lambdarank_unbiased": {"lambdarank_unbiased": True}}
+# MSLR-Web30K Fold 1's training set: 18,919 queries of about 120 documents
+# on average (2.27M rows), the longest 1,251
+N_LENGTHS_QUERIES, LENGTHS_MAX, LENGTHS_ROUNDS = 18_919, 1_251, 5
+# ranking card against CPU: a 20k-row MSLR-shaped set on PARITY_PARAMS
+# with 16 gradient bins (with 4 and no stochastic rounding nearly every
+# lambdarank gradient rounds to level 0)
+N_RANK_PARITY = 20_000
+RANK_PARITY_PARAMS = dict(PARITY_PARAMS, num_grad_quant_bins=16,
+                          eval_at=[5])
+RANK_PARITY_SETTINGS = {
+    "lambdarank_quantized": {"objective": "lambdarank"},
+    "lambdarank_exact": {"objective": "lambdarank",
+                         "use_quantized_grad": False},
+    "rank_xendcg": {"objective": "rank_xendcg"},
+    "lambdarank_position": {"objective": "lambdarank"},
+}
 
 
 def synth_higgs(n, f, seed=0, regression=False):
@@ -1947,16 +1999,16 @@ def guard_run(lgt, th, smi):
     return out
 
 
-def hold_moves(tc, tp, compactions, moves):
-    """The recorded GOSS compactions and partition moves (F = 199) against
-    their plain versions, bit for bit."""
+def hold_moves(tc, tp, compactions, moves, label="criteo"):
+    """The recorded GOSS compactions and partition moves against their
+    plain versions, bit for bit."""
     for i, (bins, vals, keep, out_cols) in enumerate(compactions):
         got = tc.compact_by_mask(bins, vals, keep, out_cols)
         ref = tc.compact_by_mask_plain(bins, vals, keep, out_cols)
         torch.cuda.synchronize()
         if not all(same_bits(a, b) for a, b in zip(got, ref)):
-            raise AssertionError(f"criteo compaction {i} differs from the "
-                                 "plain version")
+            raise AssertionError(f"{label} compaction {i} differs from "
+                                 "the plain version")
     for i, (bins, vals, old, new) in enumerate(moves):
         (kb, kv, kl), knf, kcum = tp.partition_move(bins, vals, old, new)
         (pb, pv, pl), pnf, pcum = tp.partition_move_plain(bins, vals, old,
@@ -1965,8 +2017,8 @@ def hold_moves(tc, tp, compactions, moves):
         if not (same_bits(kb, pb) and same_bits(kv, pv)
                 and same_bits(kl, pl) and same_bits(kcum, pcum)
                 and int(knf) == int(pnf)):
-            raise AssertionError(f"criteo partition move {i} differs from "
-                                 "the plain version")
+            raise AssertionError(f"{label} partition move {i} differs "
+                                 "from the plain version")
     return dict(
         compactions=[dict(shape=list(c[0].shape), values=c[1].shape[0],
                           kept=int(c[2].sum()), out_cols=c[3])
@@ -2105,6 +2157,9 @@ class SameDraws:
             n, dtype=np.float32)
         return torch.from_numpy(u).to(self.device)
 
+    def rank_uniforms(self, iteration, Q, M, goss):
+        return self._u(iteration, Q * M, 99).reshape(Q, M)
+
     def goss_uniform(self, iteration, n):
         return self._u(iteration, n, 0)
 
@@ -2195,6 +2250,352 @@ def categorical_phase(lgt, th, tc, tp, serial, gbdt, smi):
     return res
 
 
+def synth_mslr(counts, seed=0):
+    """The MSLR-Web30K shape (the port's copy of the generator of
+    ``benchmarks/suite.py::bench_mslr``): 136 standard-normal features,
+    30% of them in a linear score, relevance 0-4 from the score plus
+    noise; ``counts`` documents per query. float32 features."""
+    rng = np.random.default_rng(seed)
+    n = int(np.sum(counts))
+    X = rng.normal(size=(n, MSLR_F)).astype(np.float32)
+    w = rng.normal(size=MSLR_F) * (rng.random(MSLR_F) < 0.3)
+    rel = np.clip((X @ w) * 0.35 + rng.normal(scale=0.8, size=n) + 1.2,
+                  0, 4).astype(int).astype(float)
+    return X, rel
+
+
+def mslr_lengths(seed=1):
+    """MSLR-Web30K Fold 1's query-length spread: 18,919 lengths from a
+    lognormal of mean about 120, clipped to 1..1,251, the longest 1,251."""
+    rng = np.random.default_rng(seed)
+    counts = np.clip(np.round(rng.lognormal(np.log(120.0) - 0.245, 0.7,
+                                            size=N_LENGTHS_QUERIES)),
+                     1, LENGTHS_MAX).astype(np.int64)
+    counts[int(np.argmax(counts))] = LENGTHS_MAX
+    return counts
+
+
+def pair_share(counts, T):
+    """The share of the padded ``[Q, T, M]`` pair tensor that pairs two
+    real documents (i < min(T, n_q), i < j < n_q)."""
+    c = np.asarray(counts, np.int64)
+    t = np.minimum(T, c)
+    real = np.sum(t * (c - 1) - t * (t - 1) // 2)
+    return float(real) / (len(c) * min(T, int(c.max())) * int(c.max()))
+
+
+def gradient_ms(eng, reps=3):
+    """The objective's gradients at the engine's scores: device ms a call
+    (CUDA events) and the call's peak device memory above what was
+    allocated before it (bytes)."""
+    obj, d = eng.objective, eng.data
+    s = eng.score[:, 0]
+    kw = {}
+    if obj.needs_rng:
+        kw["gammas"] = torch.rand(obj.query_shape, device=s.device)
+    elif eng._pos_state is not None:
+        kw["pos_state"] = eng._pos_state.clone()
+    obj.get_gradients(s, d.label, d.weight, **kw)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        obj.get_gradients(s, d.label, d.weight, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / reps,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def ndcg_line(rows):
+    return ", ".join(f"{m} {v:.6f}" for _, m, v, _ in rows)
+
+
+def rank_run(lgt, th, tc, tp, bst, rounds, warm, label, smi):
+    """``rounds`` iterations of a ranking booster from launch counts of 0:
+    it/s after the first (of the GOSS iterations under GOSS), holdout
+    ndcg, launches, the gradient's device ms and a trace."""
+    th.multi_leaf_histogram.launches = 0
+    tc.compact_by_mask.launches = 0
+    tp.partition_move.launches = 0
+    secs = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    launches = {"histogram": th.multi_leaf_histogram.launches,
+                "compact": tc.compact_by_mask.launches,
+                "partition": tp.partition_move.launches}
+    eng = bst.engine
+    timed = secs[warm + 1:]
+    rows = bst.eval_valid()
+    g_ms, g_mem = gradient_ms(eng)
+    r = dict(rounds=rounds, it_per_s_after_first=len(timed) / sum(timed),
+             first_iter_s=secs[0], iter_s=[round(x, 4) for x in secs],
+             holdout={m: v for _, m, v, _ in rows}, launches=launches,
+             int_hist=eng.grow_cfg.int_hist, gradient_ms=g_ms,
+             gradient_peak_bytes=g_mem,
+             hist_rows_scanned=eng.hist_rows_scanned)
+    print(f"ranking: {label}: {rounds} rounds, "
+          f"{r['it_per_s_after_first']:.3f} it/s "
+          + ("(GOSS iterations after the first) " if warm
+             else "(after the first iteration) ")
+          + f"on {smi}; seconds per iteration {r['iter_s']}; holdout "
+          f"{ndcg_line(rows)}; launches {launches} (kernel A "
+          f"{'int' if eng.grow_cfg.int_hist else 'f32'} mode); gradient "
+          f"{g_ms:.3f} device ms a call, peak {g_mem / 2**20:.1f} MiB",
+          flush=True)
+    tr = r["trace"] = trace_rounds(bst, TRACE_ROUNDS)
+    print(f"ranking: {label} traced ({TRACE_ROUNDS} more iterations): "
+          f"{tr['wall_ms_per_iter']:.2f} ms wall, device busy "
+          f"{tr['busy_ms_per_iter']} ms, idle share {tr['idle_share']}, "
+          f"device ms per iteration of the move and compaction kernels "
+          f"{tr['step_ms_per_iter']}, device-to-host copies per iteration "
+          f"{tr['dtoh_per_iter']}; top device time (ms per iteration): "
+          f"{tr['top_kernels']}", flush=True)
+    if not (launches["histogram"] > 0 and math.isfinite(
+            r["it_per_s_after_first"]) and all(
+            0.0 < v <= 1.0 for v in r["holdout"].values())):
+        raise AssertionError(f"ranking {label}: {r}")
+    return r
+
+
+def mslr_run(lgt, th, tc, tp, serial, gbdt, smi):
+    """The suite's MSLR shape on four paths (MSLR_ROUNDS rounds, GOSS 1 /
+    learning rate more first), then rank_xendcg and lambdarank_unbiased on
+    the masked path; one more quantized iteration's kernel-A calls, a
+    GOSS compaction and the partition moves at F = 136 held against the
+    plain versions. The partition's text must equal the quantized masked
+    run's."""
+    t0 = time.time()
+    counts = np.full(N_MSLR_QUERIES, MSLR_DOCS)
+    X, rel = synth_mslr(counts)
+    n = N_MSLR_TRAIN_QUERIES * MSLR_DOCS
+    ds = lgt.Dataset(X[:n], label=rel[:n],
+                     group=counts[:N_MSLR_TRAIN_QUERIES])
+    ds.construct()
+    valid = ds.create_valid(X[n:], label=rel[n:],
+                            group=counts[N_MSLR_TRAIN_QUERIES:]).construct()
+    del X
+    setup_s = time.time() - t0
+    print(f"ranking: MSLR shape {N_MSLR_TRAIN_QUERIES} queries x "
+          f"{MSLR_DOCS} documents ({n} rows) x {MSLR_F}, holdout "
+          f"{N_MSLR_QUERIES - N_MSLR_TRAIN_QUERIES} queries: data and "
+          f"binning {setup_s:.1f} s", flush=True)
+    runs, texts = {}, {}
+    rec = HistRecorder(serial, th)
+    crec = CallRecorder(gbdt, "compact_by_mask")
+    prec = CallRecorder(serial, "partition_move")
+    try:
+        for path, extra in list(MSLR_PATHS.items()) + [
+                (name, dict(MSLR_PATHS["masked"], **p))
+                for name, p in MSLR_SIDE.items()]:
+            bst = lgt.Booster(params=dict(MSLR_PARAMS, **extra),
+                              train_set=ds)
+            bst.add_valid(valid, "holdout")
+            eng = bst.engine
+            quant = bool(extra.get("use_quantized_grad"))
+            if not (eng.objective.is_ranking and eng.num_features == MSLR_F
+                    and eng.grow_cfg.int_hist == quant
+                    and eng.hist_partition == (path == "partition")
+                    and eng.use_goss_compact == (path == "goss")):
+                raise AssertionError(f"mslr {path}: {eng.grow_cfg}")
+            side = path in MSLR_SIDE
+            warm = (int(1.0 / MSLR_PARAMS["learning_rate"])
+                    if path == "goss" else 0)
+            rounds = (MSLR_SIDE_ROUNDS if side else MSLR_ROUNDS) + warm
+            r = rank_run(lgt, th, tc, tp, bst, rounds, warm,
+                         f"MSLR {path}", smi)
+            texts[path] = bst.model_to_string()
+            # one more iteration with this path's kernel calls recorded
+            rec.tag = "mslr_quantized" if path == "quantized" else None
+            crec.on, prec.on = path == "goss", path == "partition"
+            bst.update()
+            rec.tag, crec.on, prec.on = None, False, False
+            runs[path] = r
+            launches = r["launches"]
+            if (launches["compact"] > 0) != (path == "goss") or \
+                    (launches["partition"] > 0) != (path == "partition"):
+                raise AssertionError(f"mslr {path}: launches {launches}")
+            del bst, eng
+    finally:
+        rec.close()
+        crec.close()
+        prec.close()
+    if texts["partition"] != texts["quantized"]:
+        raise AssertionError("mslr: model text differs with the partition "
+                             "on")
+    # each call held bit-equal and timed beside the plain version,
+    # index_add_ and the bound
+    replay = replay_phase(torch.device("cuda"), th, rec.calls, {})
+    shapes = sorted({(*c["args"][0].shape, c["args"][1].shape[0],
+                      c["args"][3].shape[0]) for c in rec.calls})
+    held = dict(histogram_calls=len(rec.calls), histogram_shapes=shapes,
+                replay=[{k: r[k] for k in REPLAY_KEYS} for r in replay],
+                **hold_moves(tc, tp, crec.calls, prec.calls, "mslr"))
+    mean = {m: sum(r[f"{m}_kernel_ms"] for r in replay) / len(replay)
+            for m in ("int", "f32")}
+    print(f"ranking: MSLR kernels at F = {MSLR_F} held against the plain "
+          f"versions: {len(rec.calls)} kernel-A calls of one quantized "
+          f"iteration (shapes F, n, C, lanes: {shapes}; int mode and "
+          f"exact-sum f32 mode bit-equal; mean {mean['int']:.4f} ms int, "
+          f"{mean['f32']:.4f} ms f32 a call), compactions "
+          f"{held['compactions']} and partition moves {held['moves']} "
+          f"bit-equal", flush=True)
+    if not (len(rec.calls) >= 2 and all(f == MSLR_F for f, *_ in shapes)
+            and crec.calls and prec.calls):
+        raise AssertionError(f"mslr recorded calls: {held}")
+    return dict(runs, held_against_plain=held, setup_s=setup_s,
+                partition_text_equal=True)
+
+
+def lengths_run(lgt, th, tc, tp, smi):
+    """MSLR-Web30K Fold 1's query-length spread at 136 features: masked
+    lambdarank, LENGTHS_ROUNDS rounds; it/s, the gradient's device ms and
+    peak memory with the port's chunking, and the share of the padded
+    pair work that falls on real documents."""
+    t0 = time.time()
+    counts = mslr_lengths()
+    X, rel = synth_mslr(counts, seed=3)
+    gen_s = time.time() - t0
+    t0 = time.time()
+    ds = lgt.Dataset(X, label=rel, group=counts).construct()
+    bin_s = time.time() - t0
+    del X
+    bst = lgt.Booster(params=dict(MSLR_PARAMS, **MSLR_PATHS["masked"]),
+                      train_set=ds)
+    eng = bst.engine
+    Q, M = eng.objective.query_shape
+    T = min(eng.objective.truncation, M)
+    share = pair_share(counts, T)
+    print(f"ranking: MSLR lengths: {len(counts)} queries, {ds.num_data} "
+          f"rows x {MSLR_F} (mean {counts.mean():.1f}, longest {M} "
+          f"documents): data {gen_s:.1f} s, host binning {bin_s:.1f} s; "
+          f"real pairs are {share:.4f} of the padded [Q, T, M] pair "
+          f"tensor ({Q} x {T} x {M})", flush=True)
+    th.multi_leaf_histogram.launches = 0
+    secs = []
+    for _ in range(LENGTHS_ROUNDS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    g_ms, g_mem = gradient_ms(eng)
+    [(_, _, ndcg, _)] = [r for r in bst.eval_train() if r[1] == "ndcg@1"]
+    r = dict(queries=len(counts), rows=ds.num_data, longest=int(M),
+             data_s=gen_s, binning_s=bin_s, pair_share=share,
+             chunk_queries=eng.objective.chunk_queries(T, M),
+             it_per_s_after_first=(len(secs) - 1) / sum(secs[1:]),
+             iter_s=[round(x, 4) for x in secs], gradient_ms=g_ms,
+             gradient_peak_bytes=g_mem, train_ndcg1=ndcg,
+             launches={"histogram": th.multi_leaf_histogram.launches})
+    print(f"ranking: MSLR lengths lambdarank masked: {LENGTHS_ROUNDS} rounds,"
+          f" {r['it_per_s_after_first']:.3f} it/s after the first on {smi};"
+          f" seconds per iteration {r['iter_s']}; gradient {g_ms:.3f} device"
+          f" ms a call in chunks of {r['chunk_queries']} queries, peak "
+          f"{g_mem / 2**30:.3f} GiB above the resident data; training "
+          f"ndcg@1 {ndcg:.6f}; kernel A launches "
+          f"{r['launches']['histogram']}", flush=True)
+    if not (r["launches"]["histogram"] > 0 and 0 < ndcg <= 1
+            and math.isfinite(r["it_per_s_after_first"])):
+        raise AssertionError(f"mslr lengths: {r}")
+    return r
+
+
+def rank_parity_data(seed=5):
+    """A 20k-row MSLR-shaped set: uneven queries (1 to 200 documents, one
+    of one document, every 25th of relevance all zero), positions 0-9."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 201, size=N_RANK_PARITY // 50)
+    counts = counts[np.cumsum(counts) <= N_RANK_PARITY]
+    counts[3] = 1
+    X, rel = synth_mslr(counts, seed=seed)
+    qb = np.concatenate([[0], np.cumsum(counts)])
+    for q in range(0, len(counts), 25):
+        rel[qb[q]:qb[q + 1]] = 0
+    pos = np.concatenate([np.arange(c) for c in counts]) % 10
+    return X, rel, counts, pos
+
+
+def rank_parity_run(lgt, th, tc, tp, smi):
+    """Lambdarank (quantized without stochastic rounding, and exact),
+    rank_xendcg and lambdarank with a position field, 5 rounds on the
+    masked, GOSS and partition paths, on the card and on the CPU from the
+    same draws: quantized runs give identical split lines; exact ones the
+    same, or the first parting tree is printed and the predictions before
+    it held within 1e-4; predictions within PARITY_PRED_TOL otherwise."""
+    X, rel, counts, pos = rank_parity_data()
+    out = {}
+    th.multi_leaf_histogram.launches = 0
+    tc.compact_by_mask.launches = 0
+    tp.partition_move.launches = 0
+    for setting, obj in RANK_PARITY_SETTINGS.items():
+        for path, extra in CAT_PARITY_PATHS.items():
+            res = {}
+            for dev in ("cuda", "cpu"):
+                ds = lgt.Dataset(X, label=rel, group=counts)
+                if setting == "lambdarank_position":
+                    ds.set_position(pos)
+                bst = lgt.train(
+                    dict(RANK_PARITY_PARAMS, device_type=dev, **obj,
+                         **extra), ds, num_boost_round=PARITY_ROUNDS,
+                    noise=SameDraws(dev))
+                eng = bst.engine
+                if eng.hist_partition != (path == "partition") or \
+                        eng.use_goss_compact != (
+                            path == "goss"
+                            and setting != "lambdarank_position"):
+                    raise AssertionError(f"ranking card against CPU "
+                                         f"{setting} {path}: engine paths")
+                res[dev] = (bst.model_to_string(), bst)
+            lines = [[split_lines(t) for t in
+                      res[d][0].split("\nTree=")[1:]] for d in ("cuda",
+                                                                "cpu")]
+            part = next((i for i, (a, b) in enumerate(zip(*lines))
+                         if a != b), None)
+            upto = PARITY_ROUNDS if part is None else part
+            pc = res["cuda"][1].predict(X, num_iteration=max(upto, 1))
+            pp = res["cpu"][1].predict(X, num_iteration=max(upto, 1))
+            diff = float(np.max(np.abs(pc - pp)
+                                / np.maximum(1.0, np.abs(pp))))
+            out[f"{setting}_{path}"] = dict(parting_tree=part,
+                                            max_rel_diff=diff)
+            parted = "identical" if part is None else f"part at tree {part}"
+            print(f"ranking: card against CPU, {setting} {path}: split "
+                  f"lines {parted}, predictions (of the trees before any "
+                  f"part) max |diff| / max(1, |CPU|) {diff:.3g}", flush=True)
+            exact = setting == "lambdarank_exact"
+            tol = 1e-4 if part is not None else PARITY_PRED_TOL
+            if not ((part is None or exact) and diff <= tol):
+                raise AssertionError(f"ranking card against CPU, {setting} "
+                                     f"{path}: {out}")
+    out["launches"] = {"histogram": th.multi_leaf_histogram.launches,
+                       "compact": tc.compact_by_mask.launches,
+                       "partition": tp.partition_move.launches}
+    if min(out["launches"].values()) <= 0:
+        raise AssertionError(f"ranking card against CPU: launches "
+                             f"{out['launches']}")
+    return out
+
+
+def ranking_phase(lgt, th, tc, tp, serial, gbdt, smi):
+    """The suite's MSLR shape on four paths and two more objectives with
+    its kernels held at F = 136, MSLR's query-length spread, and ranking
+    on the card against the CPU."""
+    t0 = time.time()
+    res = {"mslr": mslr_run(lgt, th, tc, tp, serial, gbdt, smi),
+           "lengths": lengths_run(lgt, th, tc, tp, smi),
+           "card_vs_cpu": rank_parity_run(lgt, th, tc, tp, smi)}
+    res["seconds"] = time.time() - t0
+    print(f"ranking phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main(argv):
     json_out = argv[argv.index("--json-out") + 1] if "--json-out" in argv \
         else None
@@ -2267,6 +2668,9 @@ def main(argv):
     if "--only-categorical" in argv:
         categorical_phase(lgt, th, tc, tp, serial, gbdt, smi)
         return 0
+    if "--only-ranking" in argv:
+        ranking_phase(lgt, th, tc, tp, serial, gbdt, smi)
+        return 0
     n_full_pad = pad_rows(N_FULL, Config({}).tpu_rows_per_block)
     hist = histogram_phase(dev, th, tp, n_full_pad)
     comp = compaction_phase(dev, tc, parent)
@@ -2282,6 +2686,7 @@ def main(argv):
     sweep = partition_sweep_phase(lgt, tp)
     objs = objectives_phase(lgt, th, tp, serial, smi)
     cat = categorical_phase(lgt, th, tc, tp, serial, gbdt, smi)
+    rank = ranking_phase(lgt, th, tc, tp, serial, gbdt, smi)
 
     h, c, p = hist["masked"], comp["goss"], part["half"]
     fl = {m: r["launches"] for m, r in full.items()}
@@ -2300,7 +2705,11 @@ def main(argv):
                 **{f"criteo_{p}": cat["criteo"][p]["launches"][key]
                    for p in CRITEO_PATHS},
                 "categorical_card_vs_cpu":
-                    cat["card_vs_cpu"]["launches"][key]}
+                    cat["card_vs_cpu"]["launches"][key],
+                **{f"mslr_{p}": rank["mslr"][p]["launches"][key]
+                   for p in list(MSLR_PATHS) + list(MSLR_SIDE)},
+                "mslr_lengths": rank["lengths"]["launches"].get(key, 0),
+                "ranking_card_vs_cpu": rank["card_vs_cpu"]["launches"][key]}
 
     def probe_entry(name, tag, source_line):
         pr = probes[name]
@@ -2345,7 +2754,8 @@ def main(argv):
              bound_by=h["bound_by"], library_ms=h["library_ms"],
              max_abs_diff=h["int_max_abs_err"], kernel_ms=h["int_ms"],
              shapes={k: v for k, v in hist.items()},
-             replay=[{k: r[k] for k in REPLAY_KEYS} for r in replay]),
+             replay=[{k: r[k] for k in REPLAY_KEYS} for r in replay],
+             replay_mslr=rank["mslr"]["held_against_plain"]["replay"]),
         dict(name="compact_by_mask", route="cuda",
              source="lightgbm_tpu_torch/csrc/compact.cu",
              core="lightgbm_tpu_torch/csrc/stable_partition.cuh",
@@ -2377,7 +2787,7 @@ def main(argv):
     ], "train": dict({k: v for k, v in train.items()
                       if k not in ("trees_leaves",)}, full_row=full,
                      partition_sweep=sweep, objectives=objs,
-                     categorical=cat)}
+                     categorical=cat, ranking=rank)}
     for v in (kernels_line["train"]["masked_it_per_s"],
               kernels_line["train"]["goss_it_per_s"]):
         if not math.isfinite(v):

@@ -5,14 +5,17 @@ empty mount, see SURVEY.md banner): gradients from the objective →
 (GOSS subset) → train one tree → shrinkage → update train + valid scores.
 
 The port of ``lightgbm_tpu/boosting/gbdt.py`` for the main paths: every
-objective but the ranking ones, with K trees an iteration for multiclass
+objective, with K trees an iteration for multiclass
 (one per class, all on the same row and feature masks, the scores an
 ``[n_pad, K]`` tensor), serial learner, full-row steps (with bagging,
 per-tree feature_fraction and the leaf-ordered row partition of
 ``tpu_hist_partition``) and GOSS steps (masked, or with the compacted
 histogram buffer of ``tpu_goss_compact``), exact or quantized gradients
 with stochastic rounding, categorical features (bitset splits) and the
-host leaf renewal of L1, quantile and MAPE. Scores and the binned
+host leaf renewal of L1, quantile and MAPE, and the ranking objectives
+(query-grouped gradients; rank_xendcg's per-iteration gammas;
+position-debiased lambdarank's per-position state, threaded from one
+iteration's gradients to the next). Scores and the binned
 matrices stay on the device across iterations; each iteration copies the
 finished trees' flat arrays to the host. ``gradients``, ``quantize`` and
 ``goss_masks`` are pure functions that take their uniform draws as
@@ -73,7 +76,8 @@ class DeviceData:
     def __init__(self, bins: torch.Tensor, bins_t: Optional[torch.Tensor],
                  n: int, label: Optional[torch.Tensor],
                  weight: Optional[torch.Tensor],
-                 init_score: Optional[np.ndarray] = None):
+                 init_score: Optional[np.ndarray] = None,
+                 query_boundaries: Optional[np.ndarray] = None):
         self.bins = bins
         self.bins_t = bins_t
         self.n = n
@@ -81,6 +85,7 @@ class DeviceData:
         self.label = label
         self.weight = weight
         self.init_score = init_score
+        self.query_boundaries = query_boundaries
         self.valid_mask = (torch.arange(self.n_pad, device=bins.device)
                            < n).to(torch.float32)
 
@@ -108,7 +113,7 @@ class DeviceData:
             return torch.from_numpy(out).to(device)
 
         return cls(bins, bins_t, n, pad1(md.label), pad1(md.weight),
-                   md.init_score)
+                   md.init_score, md.query_boundaries)
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +225,15 @@ class GBDT:
         md = self.train_set.metadata
         if hasattr(self.objective, "prepare") and md.label is not None:
             self.objective.prepare(md.label, md.weight)
+        if self.objective.is_ranking:
+            self.objective.setup_queries(md.query_boundaries,
+                                         self.train_set.num_data,
+                                         position=md.position,
+                                         device=self.device)
+        # position-debiased lambdarank: the per-position propensities
+        # each iteration's gradients read and replace
+        self._pos_state = (self.objective.init_pos_state()
+                           if self.objective.has_pos_state else None)
         self.metrics = metrics_for_config(config)
         self.num_class = config.num_tree_per_iteration
         self.average_output = False
@@ -303,11 +317,12 @@ class GBDT:
         self.goss_n_sub = compaction_out_cols(
             int(np.ceil(self.data.n_pad * frac)) + 8192,
             self.compact_rpb, self.rows_per_block)
-        # renewing objectives keep the masked GOSS path, as the JAX
-        # package does
+        # renewing objectives and position debiasing keep the masked
+        # GOSS path, as the JAX package does
         self.use_goss_compact = (
             bool(c.tpu_goss_compact) and c.data_sample_strategy == "goss"
             and not self.objective.renews
+            and not self.objective.has_pos_state
             and frac < 1.0 and self.compact_rpb >= 256
             # the buffer (sampled rows + write slack) must shrink the scan
             and self.goss_n_sub < self.data.n_pad)
@@ -366,12 +381,24 @@ class GBDT:
         self.valid_names.append(name)
 
     # ------------------------------------------------------------------
-    def gradients(self, score: torch.Tensor):
+    def gradients(self, score: torch.Tensor, goss: bool = False):
         """(grad, hess) at ``score`` ``[n_pad, K]``: ``[n_pad]`` each for
-        one tree an iteration, ``[n_pad, K]`` for multiclass."""
+        one tree an iteration, ``[n_pad, K]`` for multiclass. rank_xendcg
+        draws its gammas first (keyed by whether GOSS is active); position
+        debiasing replaces ``_pos_state`` with the state the gradients
+        return."""
         d = self.data
+        obj = self.objective
         s = score[:, 0] if self.num_class == 1 else score
-        return self.objective.get_gradients(s, d.label, d.weight)
+        if obj.needs_rng:
+            Q, M = obj.query_shape
+            return obj.get_gradients(s, d.label, d.weight, gammas=(
+                self.noise.rank_uniforms(self.iter_, Q, M, goss)))
+        if self._pos_state is not None:
+            g, h, self._pos_state = obj.get_gradients(
+                s, d.label, d.weight, pos_state=self._pos_state)
+            return g, h
+        return obj.get_gradients(s, d.label, d.weight)
 
     def _vals(self, gk_m, hk_m, mask_count, n_rows, k):
         """Histogram value rows ``[n, 3]`` of class ``k``'s tree +
@@ -441,7 +468,7 @@ class GBDT:
         K class trees' ``(tree, leaf_id)``."""
         d = self.data
         K = self.num_class
-        g, h = self.gradients(self.score)
+        g, h = self.gradients(self.score, goss)
         if goss:
             mask_gh, mask_count = self._goss(g, h)
         else:
@@ -464,7 +491,7 @@ class GBDT:
         ids and score update stay as in the masked step."""
         d = self.data
         K = self.num_class
-        g, h = self.gradients(self.score)
+        g, h = self.gradients(self.score, True)
         mask_gh, mask_count = self._goss(g, h)
         g2 = g[None] if K == 1 else g.T
         h2 = h[None] if K == 1 else h.T
@@ -613,7 +640,8 @@ class GBDT:
         weight = dd.weight.cpu().numpy()[:dd.n] if dd.weight is not None \
             else None
         return eval_metric_rows(self.objective, self.metrics, name, raw,
-                                label, weight, self.num_class)
+                                label, weight, self.num_class,
+                                dd.query_boundaries)
 
     def predict(self, X, raw_score: bool = False, start_iteration: int = 0,
                 num_iteration: int = -1) -> np.ndarray:

@@ -2,13 +2,15 @@
 
 ``lightgbm_tpu/capabilities.py`` gates features per boosting engine; this
 package has one engine so far -- gradient boosting with the serial learner
-and pool-mode histograms for every objective but the ranking ones (K trees
-an iteration for multiclass), trained on full rows (with bagging, per-tree
-feature_fraction and the leaf-ordered row partition) or under GOSS (with
-the compacted histogram buffer), on exact or quantized gradients, with
-categorical features (given to ``Dataset(categorical_feature=...)``; the
+and pool-mode histograms for every built-in objective (K trees an
+iteration for multiclass; lambdarank, with truncation, norm and position
+debiasing, and rank_xendcg on query groups from ``Dataset(group=...)``),
+trained on full rows (with bagging, per-tree feature_fraction and the
+leaf-ordered row partition) or under GOSS (with the compacted histogram
+buffer), on exact or quantized gradients, with categorical features
+(given to ``Dataset(categorical_feature=...)``; the
 ``categorical_feature`` parameter is ignored, as the JAX package ignores
-it outside streaming), every metric but the ranking ones and early
+it outside streaming), every metric (ndcg@k and map@k included) and early
 stopping. Every other feature of the JAX package is FATAL here with a
 message that names it, so an unported parameter fails loudly instead of
 silently training something else.
@@ -42,9 +44,10 @@ PORTED_METRICS = ("l1", "l2", "rmse", "quantile", "huber", "fair",
                   "poisson", "mape", "gamma", "gamma_deviance", "tweedie",
                   "binary_logloss", "binary_error", "auc",
                   "average_precision", "auc_mu", "multi_logloss",
-                  "multi_error", "cross_entropy", "kullback_leibler")
+                  "multi_error", "cross_entropy", "kullback_leibler",
+                  "ndcg", "map")
 # objectives of the JAX package this package does not train yet
-UNPORTED_OBJECTIVES = ("lambdarank", "rank_xendcg", "custom")
+UNPORTED_OBJECTIVES = ("custom",)
 
 # JAX-package knobs (``tpu_*`` and friends in config._PARAMS) this package
 # honours; any other one set to a non-default value is FATAL
@@ -72,19 +75,12 @@ def _unported_knobs(c) -> List[str]:
     return out
 
 
-def _ranking_metric(name: str) -> bool:
-    from .metric import UNPORTED_METRICS
-    name = name.strip().lower()
-    return name.split("@", 1)[0] in UNPORTED_METRICS
-
-
 # every entry is FATAL: the port trains none of these yet
 UNPORTED: Dict[str, Capability] = {
     "objective": Capability(
-        "the ranking objectives (lambdarank, rank_xendcg) and the custom "
-        "objective",
+        "the custom objective",
         lambda c: str(c.objective) in UNPORTED_OBJECTIVES,
-        {"objective": "lambdarank"}),
+        {"objective": "custom"}),
     "boosting": Capability(
         "boosting other than gbdt (dart, rf)",
         lambda c: c.boosting != "gbdt", {"boosting": "dart"}),
@@ -137,10 +133,6 @@ UNPORTED: Dict[str, Capability] = {
     "hist_rebuild": Capability(
         "tpu_hist_mode=rebuild", lambda c: c.tpu_hist_mode != "pool",
         {"tpu_hist_mode": "rebuild"}),
-    "metric": Capability(
-        "the ranking metrics (ndcg, map)",
-        lambda c: any(_ranking_metric(m) for m in c.metric),
-        {"metric": "ndcg"}),
     "snapshots": Capability(
         "snapshot_freq", lambda c: c.snapshot_freq > 0, {"snapshot_freq": 5}),
     "jax_knobs": Capability(

@@ -8,8 +8,13 @@ binned matrix is ONE packed ``[n_rows, n_used_features]`` uint8 array
 (every feature has <= 256 bins under ``max_bin <= 255``), built on the
 host with the same bin mappers and the same bytes as the JAX package.
 ``categorical_feature`` (indices or names) bins those columns by category
-(bin 0: NaN and unseen categories). Sparse, pandas (category columns
-included), file and streamed inputs are not ported yet.
+(bin 0: NaN and unseen categories). ``group`` (per-query document counts,
+for the ranking objectives and metrics) becomes the cumulative
+``query_boundaries``; ``set_position`` / ``set_field("position", ...)``
+attach per-row presentation positions (LambdaRank's position debiasing).
+The ``group_column`` parameter belongs to file input and is ignored for
+in-memory data, as the JAX package ignores it. Sparse, pandas (category
+columns included), file and streamed inputs are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,7 +33,24 @@ class Metadata:
 
     label: Optional[np.ndarray] = None
     weight: Optional[np.ndarray] = None
+    # query boundaries: int array of size num_queries + 1 (cumulative),
+    # built from the per-query counts given as ``group``
+    query_boundaries: Optional[np.ndarray] = None
     init_score: Optional[np.ndarray] = None
+    # per-row presentation positions (LambdaRank's position debiasing)
+    position: Optional[np.ndarray] = None
+
+    def set_group(self, group: Optional[np.ndarray]) -> None:
+        if group is None:
+            self.query_boundaries = None
+            return
+        group = np.asarray(group, dtype=np.int64).ravel()
+        self.query_boundaries = np.concatenate([[0], np.cumsum(group)])
+
+    def num_queries(self) -> int:
+        if self.query_boundaries is None:
+            return 0
+        return len(self.query_boundaries) - 1
 
 
 def _coerce_1d(a) -> np.ndarray:
@@ -44,7 +66,7 @@ class Dataset:
     """
 
     def __init__(self, data, label=None, reference: "Dataset" = None,
-                 weight=None, init_score=None,
+                 weight=None, group=None, init_score=None,
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
@@ -60,6 +82,8 @@ class Dataset:
             self.metadata.label = _coerce_1d(label)
         if weight is not None:
             self.metadata.weight = _coerce_1d(weight)
+        if group is not None:
+            self.metadata.set_group(_coerce_1d(group))
         if init_score is not None:
             self.metadata.init_score = _coerce_1d(init_score)
         self._constructed = False
@@ -179,16 +203,16 @@ class Dataset:
         return out
 
     # ------------------------------------------------------------------
-    def create_valid(self, data, label=None, weight=None,
+    def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None, params=None) -> "Dataset":
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, params=params,
+                       group=group, init_score=init_score, params=params,
                        free_raw_data=self.free_raw_data)
 
     def _validate_metadata(self) -> None:
         n = self.num_data
         md = self.metadata
-        for fname in ("label", "weight"):
+        for fname in ("label", "weight", "position"):
             v = getattr(md, fname)
             if v is not None and len(v) != n:
                 log.fatal(f"Length of {fname} ({len(v)}) does not "
@@ -199,6 +223,46 @@ class Dataset:
             if m != n and (n == 0 or m % n != 0):
                 log.fatal(f"Length of init_score ({m}) does not match "
                           f"number of data ({n})")
+        if md.query_boundaries is not None \
+                and int(md.query_boundaries[-1]) != n:
+            log.fatal(f"Sum of query counts "
+                      f"({int(md.query_boundaries[-1])}) does not match "
+                      f"number of data ({n})")
+
+    # ------------------------------------------------------------------
+    def set_group(self, group) -> "Dataset":
+        self.metadata.set_group(None if group is None else _coerce_1d(group))
+        return self
+
+    def set_position(self, position) -> "Dataset":
+        self.metadata.position = (None if position is None
+                                  else _coerce_1d(position).astype(np.int32))
+        return self
+
+    def set_field(self, field_name: str, data) -> "Dataset":
+        if field_name == "group":
+            return self.set_group(data)
+        if field_name == "position":
+            return self.set_position(data)
+        if field_name not in ("label", "weight", "init_score"):
+            log.fatal(f"Unknown field name {field_name}")
+        setattr(self.metadata, field_name,
+                None if data is None else _coerce_1d(data))
+        return self
+
+    def get_field(self, field_name: str):
+        """The field's metadata; "group" gives the query boundaries, as
+        the JAX package's ``get_field`` does (``get_group`` the counts)."""
+        md = self.metadata
+        if field_name == "group":
+            return md.query_boundaries
+        if field_name not in ("label", "weight", "init_score", "position"):
+            log.fatal(f"Unknown field name {field_name}")
+        return getattr(md, field_name)
+
+    def get_group(self):
+        qb = self.metadata.query_boundaries
+        return None if qb is None else np.diff(qb)
 
     def feature_num_bins(self) -> np.ndarray:
         """num_bin per used feature."""

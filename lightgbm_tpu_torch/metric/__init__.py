@@ -4,13 +4,14 @@ Reference: src/metric/*.hpp + ``Metric::CreateMetric`` (src/metric/metric
 .cpp, UNVERIFIED — empty mount, see SURVEY.md banner). Metrics consume the
 prediction-space output (after the objective's convert_output).
 
-The port of ``lightgbm_tpu/metric/__init__.py`` without the ranking metrics
-(``ndcg``, ``map``): host-side NumPy, copied from the JAX package, run once
-per ``metric_freq`` iterations on already computed scores, so they are not
-on the hot path.
+The port of ``lightgbm_tpu/metric/__init__.py``: host-side NumPy, copied
+from the JAX package, run once per ``metric_freq`` iterations on already
+computed scores, so they are not on the hot path. The ranking metrics
+(``ndcg@k``, ``map@k`` at ``eval_at``) read the data's query boundaries.
 """
 from __future__ import annotations
 
+import copy
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -29,7 +30,9 @@ class Metric:
         self.config = config
 
     def eval(self, pred: np.ndarray, label: np.ndarray,
-             weight: Optional[np.ndarray]) -> List[Tuple[str, float]]:
+             weight: Optional[np.ndarray],
+             query_boundaries: Optional[np.ndarray] = None
+             ) -> List[Tuple[str, float]]:
         """Returns a list of (metric_name, value)."""
         raise NotImplementedError
 
@@ -42,7 +45,7 @@ class Metric:
 
 def _simple(name: str, higher: bool, fn) -> type:
     class _M(Metric):
-        def eval(self, pred, label, weight):
+        def eval(self, pred, label, weight, query_boundaries=None):
             return [(name, self._avg(fn(self, pred, label), weight))]
     _M.name = name
     _M.higher_better = higher
@@ -68,7 +71,7 @@ GammaDevianceMetric = _simple(
 
 
 class RMSEMetricSqrt(RMSEMetric):
-    def eval(self, pred, label, weight):
+    def eval(self, pred, label, weight, query_boundaries=None):
         [(n, v)] = super().eval(pred, label, weight)
         return [("rmse", float(np.sqrt(v)))]
 
@@ -76,7 +79,7 @@ class RMSEMetricSqrt(RMSEMetric):
 class QuantileMetric(Metric):
     name = "quantile"
 
-    def eval(self, pred, label, weight):
+    def eval(self, pred, label, weight, query_boundaries=None):
         a = self.config.alpha
         d = label - pred
         loss = np.where(d >= 0, a * d, (a - 1.0) * d)
@@ -86,7 +89,7 @@ class QuantileMetric(Metric):
 class HuberMetric(Metric):
     name = "huber"
 
-    def eval(self, pred, label, weight):
+    def eval(self, pred, label, weight, query_boundaries=None):
         a = self.config.alpha
         d = np.abs(pred - label)
         loss = np.where(d <= a, 0.5 * d * d, a * (d - 0.5 * a))
@@ -96,7 +99,7 @@ class HuberMetric(Metric):
 class FairMetric(Metric):
     name = "fair"
 
-    def eval(self, pred, label, weight):
+    def eval(self, pred, label, weight, query_boundaries=None):
         c = self.config.fair_c
         d = np.abs(pred - label)
         loss = c * c * (d / c - np.log1p(d / c))
@@ -106,7 +109,7 @@ class FairMetric(Metric):
 class TweedieMetric(Metric):
     name = "tweedie"
 
-    def eval(self, pred, label, weight):
+    def eval(self, pred, label, weight, query_boundaries=None):
         rho = self.config.tweedie_variance_power
         p = np.maximum(pred, EPS)
         loss = (-label * np.power(p, 1 - rho) / (1 - rho)
@@ -117,7 +120,7 @@ class TweedieMetric(Metric):
 class BinaryLoglossMetric(Metric):
     name = "binary_logloss"
 
-    def eval(self, pred, label, weight):
+    def eval(self, pred, label, weight, query_boundaries=None):
         p = np.clip(pred, EPS, 1 - EPS)
         y = (label > 0).astype(np.float64)
         loss = -(y * np.log(p) + (1 - y) * np.log(1 - p))
@@ -127,7 +130,7 @@ class BinaryLoglossMetric(Metric):
 class BinaryErrorMetric(Metric):
     name = "binary_error"
 
-    def eval(self, pred, label, weight):
+    def eval(self, pred, label, weight, query_boundaries=None):
         y = (label > 0).astype(np.float64)
         err = ((pred > 0.5) != (y > 0)).astype(np.float64)
         return [("binary_error", self._avg(err, weight))]
@@ -137,7 +140,7 @@ class AUCMetric(Metric):
     name = "auc"
     higher_better = True
 
-    def eval(self, pred, label, weight):
+    def eval(self, pred, label, weight, query_boundaries=None):
         y = (label > 0).astype(np.float64)
         w = np.ones_like(y) if weight is None else weight
         order = np.argsort(pred, kind="mergesort")
@@ -168,7 +171,7 @@ class AUCMuMetric(Metric):
     name = "auc_mu"
     higher_better = True
 
-    def eval(self, pred, label, weight):
+    def eval(self, pred, label, weight, query_boundaries=None):
         pred = np.asarray(pred)
         if pred.ndim != 2:
             return [("auc_mu", 0.5)]
@@ -200,7 +203,7 @@ class AveragePrecisionMetric(Metric):
     name = "average_precision"
     higher_better = True
 
-    def eval(self, pred, label, weight):
+    def eval(self, pred, label, weight, query_boundaries=None):
         y = (label > 0).astype(np.float64)
         w = np.ones_like(y) if weight is None else weight
         order = np.argsort(-pred, kind="mergesort")
@@ -218,7 +221,7 @@ class AveragePrecisionMetric(Metric):
 class MultiLoglossMetric(Metric):
     name = "multi_logloss"
 
-    def eval(self, pred, label, weight):
+    def eval(self, pred, label, weight, query_boundaries=None):
         # pred: [n, K] probabilities
         idx = label.astype(np.int64)
         p = np.clip(pred[np.arange(len(idx)), idx], EPS, 1.0)
@@ -228,7 +231,7 @@ class MultiLoglossMetric(Metric):
 class MultiErrorMetric(Metric):
     name = "multi_error"
 
-    def eval(self, pred, label, weight):
+    def eval(self, pred, label, weight, query_boundaries=None):
         k = self.config.multi_error_top_k
         idx = label.astype(np.int64)
         if k <= 1:
@@ -243,7 +246,7 @@ class MultiErrorMetric(Metric):
 class CrossEntropyMetric(Metric):
     name = "cross_entropy"
 
-    def eval(self, pred, label, weight):
+    def eval(self, pred, label, weight, query_boundaries=None):
         p = np.clip(pred, EPS, 1 - EPS)
         loss = -(label * np.log(p) + (1 - label) * np.log(1 - p))
         return [("cross_entropy", self._avg(loss, weight))]
@@ -252,11 +255,81 @@ class CrossEntropyMetric(Metric):
 class KLDivMetric(Metric):
     name = "kullback_leibler"
 
-    def eval(self, pred, label, weight):
+    def eval(self, pred, label, weight, query_boundaries=None):
         p = np.clip(pred, EPS, 1 - EPS)
         y = np.clip(label, EPS, 1 - EPS)
         loss = (y * np.log(y / p) + (1 - y) * np.log((1 - y) / (1 - p)))
         return [("kullback_leibler", self._avg(loss, weight))]
+
+
+# ---------------------------------------------------------------------------
+# Ranking metrics (src/metric/rank_metric.hpp + dcg_calculator.cpp,
+# UNVERIFIED)
+# ---------------------------------------------------------------------------
+def _label_gains(config, max_label: int) -> np.ndarray:
+    if config.label_gain:
+        g = np.asarray(config.label_gain, dtype=np.float64)
+        if len(g) <= max_label:
+            log.fatal("label_gain table shorter than max label")
+        return g
+    return (2.0 ** np.arange(max_label + 1)) - 1.0
+
+
+def _dcg_at_k(labels: np.ndarray, scores: np.ndarray, k: int,
+              gains: np.ndarray) -> float:
+    order = np.argsort(-scores, kind="mergesort")
+    top = labels[order[:k]].astype(np.int64)
+    discounts = 1.0 / np.log2(np.arange(2, len(top) + 2))
+    return float(np.sum(gains[top] * discounts))
+
+
+class NDCGMetric(Metric):
+    name = "ndcg"
+    higher_better = True
+
+    def eval(self, pred, label, weight, query_boundaries=None):
+        if query_boundaries is None:
+            log.fatal("ndcg metric requires query information")
+        ks = self.config.eval_at
+        gains = _label_gains(self.config, int(label.max()))
+        results = {k: [] for k in ks}
+        for qi in range(len(query_boundaries) - 1):
+            s, e = query_boundaries[qi], query_boundaries[qi + 1]
+            ql, qp = label[s:e], pred[s:e]
+            ideal = np.sort(ql)[::-1].astype(np.int64)
+            for k in ks:
+                idcg = float(np.sum(
+                    gains[ideal[:k]]
+                    / np.log2(np.arange(2, min(k, len(ideal)) + 2))))
+                if idcg > 0:
+                    results[k].append(_dcg_at_k(ql, qp, k, gains) / idcg)
+                else:
+                    results[k].append(1.0)  # all-zero-label query counts as 1
+        return [(f"ndcg@{k}", float(np.mean(results[k]))) for k in ks]
+
+
+class MAPMetric(Metric):
+    name = "map"
+    higher_better = True
+
+    def eval(self, pred, label, weight, query_boundaries=None):
+        if query_boundaries is None:
+            log.fatal("map metric requires query information")
+        ks = self.config.eval_at
+        results = {k: [] for k in ks}
+        for qi in range(len(query_boundaries) - 1):
+            s, e = query_boundaries[qi], query_boundaries[qi + 1]
+            ql = (label[s:e] > 0).astype(np.float64)
+            order = np.argsort(-pred[s:e], kind="mergesort")
+            rel = ql[order]
+            cum = np.cumsum(rel)
+            prec = cum / np.arange(1, len(rel) + 1)
+            for k in ks:
+                nrel = rel[:k].sum()
+                results[k].append(
+                    float(np.sum(prec[:k] * rel[:k]) / nrel)
+                    if nrel > 0 else 0.0)
+        return [(f"map@{k}", float(np.mean(results[k]))) for k in ks]
 
 
 _REGISTRY = {
@@ -281,12 +354,10 @@ _REGISTRY = {
     "cross_entropy_lambda": CrossEntropyMetric,
     "xentlambda": CrossEntropyMetric,
     "kullback_leibler": KLDivMetric, "kldiv": KLDivMetric,
+    "ndcg": NDCGMetric, "lambdarank": NDCGMetric,
+    "rank_xendcg": NDCGMetric, "xendcg": NDCGMetric,
+    "map": MAPMetric, "mean_average_precision": MAPMetric,
 }
-
-# the ranking metrics (names and aliases of the JAX package's registry)
-# this package does not evaluate yet
-UNPORTED_METRICS = ("ndcg", "lambdarank", "rank_xendcg", "xendcg", "map",
-                    "mean_average_precision")
 _NO_METRIC = ("", "na", "null", "none", "custom")
 
 _DEFAULT_FOR_OBJECTIVE = {
@@ -297,6 +368,7 @@ _DEFAULT_FOR_OBJECTIVE = {
     "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
     "cross_entropy": "cross_entropy",
     "cross_entropy_lambda": "cross_entropy_lambda",
+    "lambdarank": "ndcg", "rank_xendcg": "ndcg",
 }
 
 
@@ -304,6 +376,12 @@ def create_metric(name: str, config) -> Optional[Metric]:
     name = name.strip().lower()
     if name in _NO_METRIC:
         return None
+    if name.startswith("ndcg@") or name.startswith("map@"):
+        # "ndcg@5": this metric at k = 5 alone
+        base, k = name.split("@", 1)
+        cfg = copy.copy(config)
+        cfg.eval_at = [int(k)]
+        return _REGISTRY[base](cfg)
     if name not in _REGISTRY:
         log.fatal(f"metric {name!r} is not supported by lightgbm_tpu_torch "
                   f"yet")
@@ -325,10 +403,11 @@ def metrics_for_config(config) -> List[Metric]:
 
 
 def eval_metric_rows(objective, metrics, name, raw, label, weight,
-                     num_class: int = 1):
+                     num_class: int = 1, query_boundaries=None):
     """Convert a raw-score matrix or vector through the objective (in
-    float32, as the JAX package does) and run every metric: ``(data_name,
-    metric_name, value, higher_better)`` tuples."""
+    float32, as the JAX package does) and run every metric (the ranking
+    ones per query of ``query_boundaries``): ``(data_name, metric_name,
+    value, higher_better)`` tuples."""
     raw = np.asarray(raw, np.float64)
     if num_class == 1 and raw.ndim == 2:
         raw = raw[:, 0]
@@ -336,6 +415,6 @@ def eval_metric_rows(objective, metrics, name, raw, label, weight,
         torch.from_numpy(raw.astype(np.float32))).numpy()
     out = []
     for m in metrics:
-        for mname, value in m.eval(pred, label, weight):
+        for mname, value in m.eval(pred, label, weight, query_boundaries):
             out.append((name, mname, value, m.higher_better))
     return out

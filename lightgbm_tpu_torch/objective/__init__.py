@@ -6,8 +6,9 @@ SURVEY.md banner). Each objective supplies ``GetGradients(score) ->
 (grad, hess)``, an optional boost-from-average init score, and the
 score→output transform used at predict time.
 
-The port of ``lightgbm_tpu/objective/__init__.py`` without the ranking
-objectives: pure element-wise torch functions on the data's device, written
+The port of ``lightgbm_tpu/objective/__init__.py`` (the ranking objectives,
+lambdarank and rank_xendcg, are in ``ranking.py``): pure element-wise torch
+functions on the data's device, written
 operation for operation as the JAX package writes them. The transcendental
 functions of the objectives beyond binary (``exp``, ``sigmoid``,
 ``softmax``, ``log1p``) run in float64 and round to float32: the card's
@@ -51,6 +52,11 @@ class Objective:
     """Base objective. Subclasses implement torch ``get_gradients``."""
 
     name = "base"
+    is_ranking = False
+    # rank_xendcg takes per-iteration uniforms; position-debiased
+    # lambdarank threads per-position state through the iterations
+    needs_rng = False
+    has_pos_state = False
 
     def __init__(self, config):
         self.config = config
@@ -495,5 +501,8 @@ def create_objective(config) -> Objective:
     name = config.objective
     if name in _REGISTRY:
         return _REGISTRY[name](config)
+    if name in ("lambdarank", "rank_xendcg"):
+        from .ranking import LambdaRank, RankXENDCG
+        return (LambdaRank if name == "lambdarank" else RankXENDCG)(config)
     log.fatal(f"objective {name!r} is not supported by lightgbm_tpu_torch "
               f"yet")

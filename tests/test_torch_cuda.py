@@ -826,3 +826,100 @@ def test_bitset_routing_on_the_card_equals_the_cpu(cuda_device):
         assert torch.equal(a, b)
     moved = res["cpu"][0] != torch.from_numpy(cpu["leaf"])
     assert 0 < int(moved.sum()) < n
+
+
+# ---- ranking ----------------------------------------------------------------
+def _rank_inputs(seed=0, n_queries=300):
+    """Uneven queries (1 to 200 documents, one of one, one all zero),
+    relevance 0-4, scores with ties, positions 0-11."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 201, size=n_queries)
+    counts[4] = 1
+    n = int(counts.sum())
+    label = rng.integers(0, 5, size=n).astype(np.float64)
+    qb = np.concatenate([[0], np.cumsum(counts)])
+    label[qb[7]:qb[8]] = 0
+    score = rng.normal(size=n).astype(np.float32)
+    tied = np.arange(7, n - 1, 7)
+    score[tied] = score[tied + 1]
+    return qb, label, score, rng.integers(0, 12, size=n)
+
+
+RANKING_CASES = {
+    "lambdarank": ({"objective": "lambdarank"}, False),
+    "rank_xendcg": ({"objective": "rank_xendcg"}, False),
+    "position": ({"objective": "lambdarank"}, True),
+    "unbiased": ({"objective": "lambdarank", "lambdarank_unbiased": True,
+                  "lambdarank_bias_p_norm": 0.5}, False),
+}
+
+
+def _rank_gradients(case, dev, iterations=3):
+    """The case's gradients (and propensities) over ``iterations`` steps
+    on ``dev``, from the same inputs; the queries in chunks of 50."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.objective import create_objective
+    params, use_pos = RANKING_CASES[case]
+    qb, label, score, pos = _rank_inputs()
+    obj = create_objective(Config(dict(params)))
+    obj.prepare(label, None)
+    obj.setup_queries(qb, len(label), position=pos if use_pos else None,
+                      device=dev)
+    Q, M = obj.query_shape
+    obj.pair_chunk_elems = 50 * min(30, M) * M
+    s = torch.from_numpy(score).to(dev)
+    y = torch.from_numpy(label.astype(np.float32)).to(dev)
+    state = obj.init_pos_state() if obj.has_pos_state else None
+    out = []
+    for it in range(iterations):
+        kw = {}
+        if obj.needs_rng:
+            kw["gammas"] = torch.from_numpy(np.random.default_rng(it).random(
+                (Q, M), dtype=np.float32)).to(dev)
+        elif state is not None:
+            kw["pos_state"] = state
+        res = obj.get_gradients(s, y, None, **kw)
+        if state is not None:
+            state = res[2]
+        out.append([r.cpu() for r in res])
+        s = s - 0.5 * res[0]
+    return out
+
+
+@pytest.mark.parametrize("case", list(RANKING_CASES))
+def test_ranking_gradients_on_the_card_equal_the_cpu(cuda_device, case):
+    """The pair sums are fixed trees of float32 adds and the
+    transcendental functions run in float64, so the card gives the CPU's
+    bits, three iterations deep (the debiased cases thread their
+    propensities)."""
+    for a, b in zip(_rank_gradients(case, cuda_device),
+                    _rank_gradients(case, "cpu")):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_debiased_gradients_are_deterministic_on_the_card(cuda_device):
+    """The position costs add in a fixed order (no atomics), so two card
+    runs give the same bits."""
+    for case in ("position", "unbiased"):
+        for a, b in zip(_rank_gradients(case, cuda_device),
+                        _rank_gradients(case, cuda_device)):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+
+
+def test_card_sort_orders_ties_by_index(cuda_device):
+    """``torch.sort(-s, stable=True)`` on the card: ties by index, -inf
+    padding last, as on the CPU (and as the JAX package's stable
+    argsort)."""
+    rng = np.random.default_rng(3)
+    s = rng.integers(0, 4, size=(64, 300)).astype(np.float32)
+    s[:, 250:] = -np.inf
+    s[5] = -np.inf
+    s = torch.from_numpy(s)
+    got = torch.sort(-s.to(cuda_device), dim=1, stable=True).indices.cpu()
+    want = torch.sort(-s, dim=1, stable=True).indices
+    assert torch.equal(got, want)
+    key = (-s).numpy()
+    np.testing.assert_array_equal(
+        want.numpy(), np.argsort(key, axis=1, kind="stable"))

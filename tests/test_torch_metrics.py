@@ -4,9 +4,11 @@ Every metric the port evaluates gets the same seeded predictions, labels
 and (or no) weights in both packages: ``[n]`` predictions for the binary
 and regression metrics, ``[n, K]`` class probabilities for the multiclass
 ones (``multi_error`` also at ``multi_error_top_k`` 2 and 3, ``auc_mu``
-also with ``auc_mu_weights``). Both are host numpy, so the values agree
-within 1e-12 relative. The registries (names, aliases, default metric per
-objective) are the reference's without the ranking metrics.
+also with ``auc_mu_weights``), relevance labels 0-4 in uneven query groups
+for ``ndcg`` and ``map`` (tests/test_torch_ranking.py holds them at
+``eval_at`` 1, 3 and 10 and on 1-document and all-zero queries). Both are
+host numpy, so the values agree within 1e-12 relative. The registries
+(names, aliases, default metric per objective) are the reference's.
 """
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from lightgbm_tpu_torch.config import Config
 
 N, K = 3000, 5
 MULTI = ("multi_logloss", "multi_error", "auc_mu")
+RANKING = ("ndcg", "map")
 CONFIGS = {"": {}, "top_k2": {"multi_error_top_k": 2},
            "top_k3": {"multi_error_top_k": 3},
            "alpha": {"alpha": 0.3, "fair_c": 2.0,
@@ -29,7 +32,10 @@ CONFIGS = {"": {}, "top_k2": {"multi_error_top_k": 2},
 
 def _inputs(name, weighted, seed=0):
     rng = np.random.default_rng(seed)
-    if name in MULTI:
+    if name in RANKING:
+        pred = rng.normal(size=N)
+        label = np.clip(np.round(pred + rng.normal(size=N) + 1.5), 0, 4)
+    elif name in MULTI:
         raw = rng.normal(size=(N, K))
         pred = np.exp(raw) / np.exp(raw).sum(1, keepdims=True)
         label = rng.integers(0, K, size=N).astype(np.float64)
@@ -70,8 +76,12 @@ def test_metric_matches_reference(name, cfg, weighted):
     pred, label, weight = _inputs(name, weighted)
     port = tmet.create_metric(name, Config(dict(params)))
     ref = jmet.create_metric(name, jcfg.Config(dict(params)))
-    got = port.eval(pred, label, weight)
-    want = ref.eval(pred, label, weight)
+    qb = None
+    if name in RANKING:
+        cuts = np.cumsum(np.random.default_rng(1).integers(1, 40, size=N))
+        qb = np.concatenate([[0], cuts[cuts < N], [N]])
+    got = port.eval(pred, label, weight, qb)
+    want = ref.eval(pred, label, weight, qb)
     assert [n for n, _ in got] == [n for n, _ in want]
     assert port.higher_better == ref.higher_better
     for (_, a), (_, b) in zip(got, want):
@@ -80,18 +90,12 @@ def test_metric_matches_reference(name, cfg, weighted):
 
 
 def test_registry_and_defaults_match_reference():
-    ranking = {n for n, cls in jmet._REGISTRY.items()
-               if cls in (jmet.NDCGMetric, jmet.MAPMetric)}
-    assert set(tmet._REGISTRY) == set(jmet._REGISTRY) - ranking
-    assert ranking == set(tmet.UNPORTED_METRICS)
+    assert set(tmet._REGISTRY) == set(jmet._REGISTRY)
     for alias, cls in tmet._REGISTRY.items():
         assert cls.__name__ == jmet._REGISTRY[alias].__name__, alias
     assert {cls.name for cls in tmet._REGISTRY.values()} \
         == set(capabilities.PORTED_METRICS)
-    ranking_objectives = ("lambdarank", "rank_xendcg")
-    assert tmet._DEFAULT_FOR_OBJECTIVE == {
-        k: v for k, v in jmet._DEFAULT_FOR_OBJECTIVE.items()
-        if k not in ranking_objectives}
+    assert tmet._DEFAULT_FOR_OBJECTIVE == jmet._DEFAULT_FOR_OBJECTIVE
     for obj, default in tmet._DEFAULT_FOR_OBJECTIVE.items():
         [m] = tmet.metrics_for_config(Config({"objective": obj,
                                               "num_class": 3}))

@@ -61,11 +61,18 @@ class JaxReplayNoise:
     """The JAX package's training draws (gbdt.py key derivation:
     PRNGKey(objective_seed + iter); split -> (kg, km) for GOSS;
     fold_in(key, 0x9e37) then fold_in(., class k) -> split -> (kg, kh)
-    for stochastic rounding of class k's tree), handed to the port as
-    tensors."""
+    for stochastic rounding of class k's tree; rank_xendcg's gammas from
+    the key itself on a full-row step and from kg under GOSS), handed to
+    the port as tensors."""
 
     def __init__(self, seed):
         self.seed = seed
+
+    def rank_uniforms(self, iteration, Q, M, goss):
+        key = jax.random.PRNGKey(self.seed + iteration)
+        if goss:
+            key = jax.random.split(key)[0]
+        return torch.from_numpy(np.array(jax.random.uniform(key, (Q, M))))
 
     def goss_uniform(self, iteration, n):
         _, km = jax.random.split(jax.random.PRNGKey(self.seed + iteration))
