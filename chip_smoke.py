@@ -78,7 +78,21 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
    column and NaN in the categorical columns) on the three paths, binary
    on quantized and exact gradients and 3-class multiclass, on the card
    and on the CPU;
-10. learning to rank: the MSLR-Web30K shape of ``benchmarks/suite.py``'s
+10. Exclusive Feature Bundling: the Criteo shape with the suite's own
+   ``enable_bundle`` on the Dataset the categorical phase binned (no
+   second binning; bundling happens when the booster is built): 199
+   logical features must become 59 physical columns, which kernel A
+   scans, on the masked path, GOSS (which stays masked under EFB: B
+   must not launch) and the forced partition (B′ moves the physical
+   columns), 10 rounds each (GOSS 10 more first), each traced beside the
+   unbundled masked run on the same data (kernel A ms per iteration,
+   resident bytes of the bins), the partition's text byte-equal to the
+   masked run's, one more iteration's kernel-A calls and moves at
+   F = 59 held against their plain versions; then 20k Criteo-shaped rows
+   with 8 sparse continuous columns, bundled, on the card and on the CPU:
+   masked, GOSS, partition, exact gradients, ``max_conflict_rate`` 0.2
+   and CSR input;
+11. learning to rank: the MSLR-Web30K shape of ``benchmarks/suite.py``'s
    ``bench_mslr`` (4,096 training queries of 122 documents, 136
    features, relevance 0-4, lambdarank, 127 leaves, 1,024 queries held
    out) on the masked path with exact gradients (kernel A in f32 mode)
@@ -102,9 +116,9 @@ per-kernel JSON line and the result line ``{"ok": true, "device":
 {...}}``; any failure exits non-zero before the result line.
 ``--json-out PATH`` also writes the per-kernel record, replay included,
 to PATH; ``--only-probes``, ``--only-sweep``, ``--only-objectives``,
-``--only-categorical`` and ``--only-ranking`` build the kernels, run phase
-3, 7, 8, 9 or 10 and stop (no result line). It needs a CUDA device and
-imports neither JAX nor ``lightgbm_tpu``.
+``--only-categorical``, ``--only-efb`` and ``--only-ranking`` build the
+kernels, run phase 3, 7, 8, 9, 10 or 11 and stop (no result line). It
+needs a CUDA device and imports neither JAX nor ``lightgbm_tpu``.
 """
 import json
 import math
@@ -219,6 +233,31 @@ CRITEO_PATHS = {
     "goss": {"data_sample_strategy": "goss", "tpu_goss_compact": True,
              "stochastic_rounding": True, "tpu_hist_partition": "false"},
     "partition": {"tpu_hist_partition": "true"},
+}
+# the EFB phase: the Criteo shape with the suite's own enable_bundle
+# (benchmarks/suite.py::bench_criteo); its 160 exclusive indicators bundle
+# into 20 columns of 8, so the 199 logical features are 59 physical columns
+EFB_PARAMS = dict(CRITEO_PARAMS, enable_bundle=True)
+EFB_PHYS_COLS = 59
+# EFB card against CPU (on PARITY_PARAMS, N_PARITY Criteo-shaped rows and 8
+# sparse continuous columns): case -> (indicator flip share, CSR input,
+# params); GOSS from iteration 1 / 0.3 = 3 of the 5. The objective is
+# cross_entropy on the 0/1 label: its sigmoid runs in float64, so card and
+# CPU gradients are the same bits. binary keeps float32 torch.sigmoid (the
+# reference's bits on the CPU), whose last bits differ on the card; on
+# this data that moves the quantization scale from the second tree and
+# parts the categorical splits, with EFB on or off (EFB_BINARY_NOTE)
+EFB_PARITY_OBJECTIVE = {"objective": "cross_entropy"}
+EFB_BINARY_NOTE = "binary's float32 sigmoid, ROADMAP Queue 3"
+EFB_PARITY_CASES = {
+    "masked": (0.0, False, {}),
+    "goss": (0.0, False, {"data_sample_strategy": "goss",
+                          "learning_rate": 0.3}),
+    "partition": (0.0, False, {"tpu_hist_partition": "true"}),
+    "exact": (0.0, False, {"use_quantized_grad": False}),
+    "conflicts_0.2": (0.03, False, {"max_conflict_rate": 0.2,
+                                    "tpu_hist_partition": "true"}),
+    "csr_input": (0.0, True, {}),
 }
 # categorical card against CPU (on PARITY_PARAMS, N_PARITY rows)
 CAT_PARITY_SETTINGS = {
@@ -1245,8 +1284,9 @@ def trace_rounds(bst, rounds):
     copy intervals), the idle share, the device ms of the move and
     compaction kernels (``STEP_KERNELS``), device-to-host copies per
     iteration (the host's blocking reads) and the kernels with the most
-    device time. The profiler's own host overhead is in the wall time. Device
-    numbers are None when the trace holds no device events."""
+    device time (and kernel A's, ``hist_kernel``). The profiler's own host
+    overhead is in the wall time. Device numbers are None when the trace
+    holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1267,7 +1307,8 @@ def trace_rounds(bst, rounds):
     if not dev_ev:
         return dict(wall_ms_per_iter=wall_ms, busy_ms_per_iter=None,
                     idle_share=None, step_ms_per_iter=None,
-                    dtoh_per_iter=None, top_kernels=None)
+                    kernel_a_ms_per_iter=None, dtoh_per_iter=None,
+                    top_kernels=None)
     busy_ms = busy_us / 1e3 / rounds
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
     step = {k: sum(us for name, us in per_name.items() if k in name)
@@ -1275,6 +1316,8 @@ def trace_rounds(bst, rounds):
     return dict(
         wall_ms_per_iter=wall_ms, busy_ms_per_iter=busy_ms,
         idle_share=1.0 - busy_ms / wall_ms, step_ms_per_iter=step,
+        kernel_a_ms_per_iter=sum(us for name, us in per_name.items()
+                                 if "hist_kernel" in name) / 1e3 / rounds,
         dtoh_per_iter=sum("DtoH" in e.name or "Device -> Host" in e.name
                           for e in dev_ev) / rounds,
         top_kernels=[(name[:80], us / 1e3 / rounds) for name, us in top])
@@ -1661,7 +1704,9 @@ def regression_run(lgt, th, tp, modes, smi):
 
 def multiclass_run(lgt, th, tp, modes, smi):
     """Multiclass softmax, 7 classes, at the Covertype shape: 7 trees an
-    iteration, auto-quantized (kernel A in int mode, 9 calls a tree)."""
+    iteration, auto-quantized (kernel A in int mode, 9 calls a tree). EFB
+    is on by default, so the 4 wilderness and 40 soil indicators bundle
+    and kernel A scans the physical columns."""
     X, y = synth_covtype(N_COVTYPE + N_COVTYPE_HOLDOUT, seed=0)
     Xt, yt = X[:N_COVTYPE], y[:N_COVTYPE]
     Xv, yv = X[N_COVTYPE:], y[N_COVTYPE:]
@@ -1697,7 +1742,8 @@ def multiclass_run(lgt, th, tp, modes, smi):
     r["trace"] = trace_rounds(bst, TRACE_ROUNDS)
     trace_line("multiclass", r["trace"])
     # one more iteration, its K class trees' kernel-A calls recorded and
-    # each held against the plain version at this shape (F = 54)
+    # each held against the plain version at this shape (the physical
+    # columns of the 54 features)
     rec = HistRecorder(modes.serial, th)
     rec.tag = "multiclass"
     bst.update()
@@ -1708,13 +1754,15 @@ def multiclass_run(lgt, th, tp, modes, smi):
         hold_call(th, call, f"multiclass call {i}", rng, exact)
     shapes = sorted({(*c["args"][0].shape, c["args"][1].shape[0],
                       c["args"][3].shape[0]) for c in rec.calls})
-    r["held_against_plain"] = dict(calls=len(rec.calls), shapes=shapes)
+    f_phys = eng.data.bins_t.shape[0]
+    r["held_against_plain"] = dict(calls=len(rec.calls), shapes=shapes,
+                                   physical_columns=f_phys)
     print(f"objectives: multiclass: {len(rec.calls)} kernel-A calls of one "
-          f"iteration (shapes F, n, C, lanes: {shapes}) held against the "
-          f"plain version: int mode and exact-sum f32 mode bit-equal",
-          flush=True)
-    if len(rec.calls) < 2 * K or any(f != Xt.shape[1]
-                                     for f, *_ in shapes):
+          f"iteration (shapes F, n, C, lanes: {shapes}; {Xt.shape[1]} "
+          f"features in {f_phys} physical columns, EFB "
+          f"{eng.has_bundles}) held against the plain version: int mode "
+          f"and exact-sum f32 mode bit-equal", flush=True)
+    if len(rec.calls) < 2 * K or any(f != f_phys for f, *_ in shapes):
         raise AssertionError(f"multiclass recorded calls {shapes}")
     del rec
     if r["trees"] != K * MC_ROUNDS or pred.shape != (len(Xv), K) \
@@ -2027,14 +2075,10 @@ def hold_moves(tc, tp, compactions, moves, label="criteo"):
                for m in moves])
 
 
-def criteo_run(lgt, th, tc, tp, serial, gbdt, smi):
-    """The Criteo shape on three paths, CRITEO_ROUNDS rounds each (the
-    GOSS path 1 / learning rate more: GOSS starts there): it/s, AUC on the
-    first 100k rows, launches, categorical splits and a trace; then one
-    more iteration of each whose kernel-A calls (masked), compaction
-    (GOSS) or partition moves (partition) are held against the plain
-    versions at F = 199. The partition's text must equal the masked
-    run's."""
+def criteo_data(lgt):
+    """The Criteo shape's constructed Dataset (binned once, shared by the
+    unbundled runs and the EFB phase), the rows the AUC is taken on and
+    the seconds the data and binning took."""
     t0 = time.time()
     X, y = synth_criteo(N_CRITEO)
     ds = lgt.Dataset(X, label=y, categorical_feature=CRITEO_CATS)
@@ -2042,8 +2086,71 @@ def criteo_run(lgt, th, tc, tp, serial, gbdt, smi):
     Xa, ya = X[:CRITEO_AUC_ROWS], y[:CRITEO_AUC_ROWS]
     del X
     setup_s = time.time() - t0
-    print(f"categorical: Criteo shape {N_CRITEO} x 199 (26 categorical): "
-          f"data and binning {setup_s:.1f} s", flush=True)
+    print(f"Criteo shape {N_CRITEO} x 199 (26 categorical): data and "
+          f"binning {setup_s:.1f} s", flush=True)
+    return dict(ds=ds, Xa=Xa, ya=ya, setup_s=setup_s)
+
+
+def criteo_rounds(bst, path, th, tc, tp, Xa, ya, smi, label):
+    """CRITEO_ROUNDS iterations of a Criteo-shaped booster (GOSS: 1 /
+    learning rate more first, as GOSS starts there) from launch counts of
+    0, then TRACE_ROUNDS traced ones: it/s after the first iteration
+    (GOSS: of its GOSS iterations), AUC on the first rows, launches, the
+    trace, and the model text (key ``text``)."""
+    eng = bst.engine
+    warm = (int(1.0 / CRITEO_PARAMS["learning_rate"])
+            if path == "goss" else 0)
+    rounds = CRITEO_ROUNDS + warm
+    th.multi_leaf_histogram.launches = 0
+    tc.compact_by_mask.launches = 0
+    tp.partition_move.launches = 0
+    secs = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    launches = {"histogram": th.multi_leaf_histogram.launches,
+                "compact": tc.compact_by_mask.launches,
+                "partition": tp.partition_move.launches}
+    timed = secs[warm + 1:]
+    r = dict(rounds=rounds, it_per_s_after_first=len(timed) / sum(timed),
+             first_iter_s=secs[0], iter_s=[round(s, 4) for s in secs],
+             auc_first_100k=auc_of(bst.predict(Xa), ya),
+             cat_nodes=categorical_nodes(eng.models),
+             nodes=sum(t.num_nodes for t in eng.models),
+             launches=launches, hist_rows_scanned=eng.hist_rows_scanned,
+             text=bst.model_to_string())
+    print(f"{label} {path}: {rounds} rounds, "
+          f"{r['it_per_s_after_first']:.3f} it/s "
+          + ("(GOSS iterations after the first) " if warm
+             else "(after the first iteration) ")
+          + f"on {smi}; seconds per iteration {r['iter_s']}; AUC on the "
+          f"first {CRITEO_AUC_ROWS} rows {r['auc_first_100k']:.6f}; "
+          f"categorical splits {r['cat_nodes']} of {r['nodes']}; launches "
+          f"{launches}", flush=True)
+    tr = r["trace"] = trace_rounds(bst, TRACE_ROUNDS)
+    print(f"{label} {path} traced ({TRACE_ROUNDS} more iterations): "
+          f"{tr['wall_ms_per_iter']:.2f} ms wall, device busy "
+          f"{tr['busy_ms_per_iter']} ms, idle share {tr['idle_share']}, "
+          f"kernel A {tr['kernel_a_ms_per_iter']} ms, device ms per "
+          f"iteration of the move and compaction kernels "
+          f"{tr['step_ms_per_iter']}, device-to-host copies per iteration "
+          f"{tr['dtoh_per_iter']}; top device time (ms per iteration): "
+          f"{tr['top_kernels']}", flush=True)
+    return r
+
+
+def criteo_run(lgt, th, tc, tp, serial, gbdt, smi, data):
+    """The Criteo shape on three paths, CRITEO_ROUNDS rounds each (the
+    GOSS path 1 / learning rate more: GOSS starts there): it/s, AUC on the
+    first 100k rows, launches, categorical splits and a trace; then one
+    more iteration of each whose kernel-A calls (masked), compaction
+    (GOSS) or partition moves (partition) are held against the plain
+    versions at F = 199. The partition's text must equal the masked
+    run's."""
+    ds, Xa, ya, setup_s = (data[k] for k in ("ds", "Xa", "ya", "setup_s"))
     runs, texts = {}, {}
     rec = HistRecorder(serial, th)
     crec = CallRecorder(gbdt, "compact_by_mask")
@@ -2054,62 +2161,20 @@ def criteo_run(lgt, th, tc, tp, serial, gbdt, smi):
                               train_set=ds)
             eng = bst.engine
             if not (eng.has_categorical and eng.grow_cfg.int_hist
-                    and eng.num_features == 199
+                    and eng.num_features == 199 and not eng.has_bundles
                     and eng.hist_partition == (path == "partition")
                     and eng.use_goss_compact == (path == "goss")):
                 raise AssertionError(f"criteo {path}: {eng.grow_cfg}")
-            warm = (int(1.0 / CRITEO_PARAMS["learning_rate"])
-                    if path == "goss" else 0)
-            rounds = CRITEO_ROUNDS + warm
-            th.multi_leaf_histogram.launches = 0
-            tc.compact_by_mask.launches = 0
-            tp.partition_move.launches = 0
-            secs = []
-            for _ in range(rounds):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                bst.update()
-                torch.cuda.synchronize()
-                secs.append(time.perf_counter() - t)
-            launches = {"histogram": th.multi_leaf_histogram.launches,
-                        "compact": tc.compact_by_mask.launches,
-                        "partition": tp.partition_move.launches}
-            # it/s after the first iteration; under GOSS, of the GOSS
-            # iterations (after the first of them)
-            timed = secs[warm + 1:]
-            r = dict(rounds=rounds, it_per_s_after_first=len(timed)
-                     / sum(timed), first_iter_s=secs[0],
-                     iter_s=[round(s, 4) for s in secs],
-                     auc_first_100k=auc_of(bst.predict(Xa), ya),
-                     cat_nodes=categorical_nodes(eng.models),
-                     nodes=sum(t.num_nodes for t in eng.models),
-                     launches=launches,
-                     hist_rows_scanned=eng.hist_rows_scanned)
-            texts[path] = bst.model_to_string()
-            print(f"categorical: Criteo {path}: {rounds} rounds, "
-                  f"{r['it_per_s_after_first']:.3f} it/s "
-                  + ("(GOSS iterations after the first) " if warm
-                     else "(after the first iteration) ")
-                  + f"on {smi}; seconds per iteration {r['iter_s']}; AUC "
-                  f"on the first {CRITEO_AUC_ROWS} rows "
-                  f"{r['auc_first_100k']:.6f}; categorical splits "
-                  f"{r['cat_nodes']} of {r['nodes']}; launches {launches}",
-                  flush=True)
-            tr = r["trace"] = trace_rounds(bst, TRACE_ROUNDS)
-            print(f"categorical: Criteo {path} traced ({TRACE_ROUNDS} more "
-                  f"iterations): {tr['wall_ms_per_iter']:.2f} ms wall, device"
-                  f" busy {tr['busy_ms_per_iter']} ms, idle share "
-                  f"{tr['idle_share']}, device ms per iteration of the move "
-                  f"and compaction kernels {tr['step_ms_per_iter']}, "
-                  f"device-to-host copies per iteration "
-                  f"{tr['dtoh_per_iter']}; top device time (ms per "
-                  f"iteration): {tr['top_kernels']}", flush=True)
+            r = criteo_rounds(bst, path, th, tc, tp, Xa, ya, smi,
+                              "categorical: Criteo")
+            texts[path] = r.pop("text")
             # one more iteration with this path's kernel calls recorded
             rec.tag = "criteo_masked" if path == "masked" else None
             crec.on, prec.on = path == "goss", path == "partition"
             bst.update()
             rec.tag, crec.on, prec.on = None, False, False
             runs[path] = r
+            launches = r["launches"]
             if not (launches["histogram"] > 0 and r["cat_nodes"] > 0
                     and math.isfinite(r["it_per_s_after_first"])
                     and r["auc_first_100k"] > 0.6):
@@ -2237,16 +2302,252 @@ def categorical_parity_run(lgt, th, tc, tp, smi):
     return out
 
 
-def categorical_phase(lgt, th, tc, tp, serial, gbdt, smi):
+def categorical_phase(lgt, th, tc, tp, serial, gbdt, smi, criteo):
     """bench.py's categorical guard, the Criteo shape on three paths with
     its kernels held at F = 199, and categorical training on the card
     against the CPU."""
     t0 = time.time()
     res = {"guard": guard_run(lgt, th, smi),
-           "criteo": criteo_run(lgt, th, tc, tp, serial, gbdt, smi),
+           "criteo": criteo_run(lgt, th, tc, tp, serial, gbdt, smi, criteo),
            "card_vs_cpu": categorical_parity_run(lgt, th, tc, tp, smi)}
     res["seconds"] = time.time() - t0
     print(f"categorical phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def efb_criteo_run(lgt, th, tc, tp, serial, gbdt, smi, data):
+    """The Criteo shape with EFB on the masked, GOSS and partition paths,
+    and the unbundled masked path beside them, on one constructed Dataset:
+    CRITEO_ROUNDS rounds each (GOSS 1 / learning rate more first), traced;
+    199 logical features must become EFB_PHYS_COLS physical columns that
+    kernel A scans, B must not launch (GOSS stays masked under EFB) and
+    B′ must move the physical columns under the partition, whose text
+    must equal the masked run's; one more iteration's kernel-A calls
+    (masked) and moves (partition) are held against the plain versions.
+    Last, the bundled and unbundled masked paths run again in the
+    reverse order, so their it/s come in turns (unbundled, EFB, EFB,
+    unbundled)."""
+    ds, Xa, ya = data["ds"], data["Xa"], data["ya"]
+    runs, texts, plan = {}, {}, None
+    rec = HistRecorder(serial, th)
+    prec = CallRecorder(serial, "partition_move")
+    paths = [("unbundled", CRITEO_PARAMS, "masked")] + [
+        (p, EFB_PARAMS, p) for p in CRITEO_PATHS]
+    try:
+        for label, params, path in paths:
+            bst = lgt.Booster(params=dict(params, **CRITEO_PATHS[path]),
+                              train_set=ds)
+            eng = bst.engine
+            bundled = params is EFB_PARAMS
+            f_rows = EFB_PHYS_COLS if bundled else 199
+            if not (eng.has_bundles == bundled and eng.num_features == 199
+                    and eng.data.bins_t.shape[0] == f_rows
+                    and eng.data.bins.shape[1] == f_rows
+                    and eng.grow_cfg.int_hist and eng.B == 256
+                    and not (bundled and eng.use_goss_compact)
+                    and eng.hist_partition == (path == "partition")):
+                raise AssertionError(f"efb {label}: bundled "
+                                     f"{eng.has_bundles}, bins "
+                                     f"{tuple(eng.data.bins_t.shape)}")
+            if bundled:
+                plan = eng.bundle_plan
+            r = criteo_rounds(bst, path, th, tc, tp, Xa, ya, smi,
+                              "efb: Criteo" + ("" if bundled
+                                               else " unbundled"))
+            r["resident_bin_bytes"] = (eng.data.bins.numel()
+                                       + eng.data.bins_t.numel())
+            texts[label] = r.pop("text")
+            if bundled:
+                rec.tag = "efb_masked" if path == "masked" else None
+                prec.on = path == "partition"
+                bst.update()
+                rec.tag, prec.on = None, False
+            runs[label] = r
+            launches = r["launches"]
+            if not (launches["histogram"] > 0 and r["cat_nodes"] > 0
+                    and math.isfinite(r["it_per_s_after_first"])
+                    and r["auc_first_100k"] > 0.6):
+                raise AssertionError(f"efb {label}: {r}")
+            if launches["compact"] > 0 or \
+                    (launches["partition"] > 0) != (path == "partition"):
+                raise AssertionError(f"efb {label}: launches {launches}")
+            del bst, eng
+    finally:
+        rec.close()
+        prec.close()
+    if texts["partition"] != texts["masked"]:
+        raise AssertionError("efb: model text differs with the partition "
+                             "on")
+    turns = [runs["unbundled"]["it_per_s_after_first"],
+             runs["masked"]["it_per_s_after_first"]]
+    for params in (EFB_PARAMS, CRITEO_PARAMS):
+        bst = lgt.Booster(params=dict(params, **CRITEO_PATHS["masked"]),
+                          train_set=ds)
+        turns.append(timed_rounds(bst, CRITEO_ROUNDS, th, tp)
+                     ["it_per_s_after_first"])
+        del bst
+    print(f"efb: masked it/s in turns (unbundled, EFB, EFB, unbundled), "
+          f"{CRITEO_ROUNDS} rounds each on {smi}: {turns}", flush=True)
+    # each kernel-A call held bit-equal and timed beside the plain
+    # version, index_add_ and the bound; each move held and timed
+    replay = replay_phase(torch.device("cuda"), th, rec.calls, {})
+    shapes = sorted({(*c["args"][0].shape, c["args"][1].shape[0],
+                      c["args"][3].shape[0]) for c in rec.calls})
+    held = dict(histogram_calls=len(rec.calls), histogram_shapes=shapes,
+                replay=[{k: r[k] for k in REPLAY_KEYS} for r in replay],
+                **hold_moves(tc, tp, [], prec.calls, label="efb"))
+    held["move_times"] = time_moves(tp, prec.calls)
+    ms = {k: r["trace"]["kernel_a_ms_per_iter"] for k, r in runs.items()}
+    mib = {k: r["resident_bin_bytes"] / 2 ** 20 for k, r in runs.items()}
+    mean = {m: sum(r[f"{m}_kernel_ms"] for r in replay) / len(replay)
+            for m in ("int", "f32")}
+    print(f"efb: Criteo {sum(len(b) for b in plan.bundles)} features in "
+          f"{len(plan.bundles)} bundles, 199 -> {plan.n_phys} columns; "
+          f"kernel A ms per iteration {ms} (unbundled: F = 199); resident "
+          f"bins (row- and feature-major) MiB {mib}; {len(rec.calls)} "
+          f"kernel-A calls of one masked iteration (shapes F, n, C, "
+          f"lanes: {shapes}; int mode and exact-sum f32 mode bit-equal; "
+          f"mean {mean['int']:.4f} ms int, {mean['f32']:.4f} ms f32 a "
+          f"call) and partition moves {held['moves']} bit-equal to the "
+          f"plain versions", flush=True)
+    if not (len(rec.calls) >= 2 and prec.calls
+            and all(f == EFB_PHYS_COLS for f, *_ in shapes)):
+        raise AssertionError(f"efb recorded calls: {held}")
+    return dict(runs, held_against_plain=held, n_phys=plan.n_phys,
+                bundles=len(plan.bundles), partition_text_equal=True,
+                masked_it_per_s_in_turns=turns)
+
+
+def time_moves(tp, moves):
+    """Device ms of the partition move on recorded moves (the inputs of
+    one iteration), beside the plain version, three ``index_copy_`` (the
+    destinations computed beforehand) and the bound: both leaf-id arrays,
+    every column read and written once, the prefix sums written once."""
+    out = []
+    for bins, vals, old, new in moves:
+        F, n = bins.shape
+        C = vals.shape[0]
+        dst = tuple(torch.empty_like(a) for a in (bins, vals, new))
+        ms = device_ms(lambda: tp.partition_move(bins, vals, old, new,
+                                                 out=dst))
+        plain_ms = time_ms(lambda: tp.partition_move_plain(
+            bins, vals, old, new), reps=2, warmup=1)
+        d64 = tp.plan_split_move(new != old)[0].long()
+        lib_ms = device_ms(lambda: (dst[0].index_copy_(1, d64, bins),
+                                    dst[1].index_copy_(1, d64, vals),
+                                    dst[2].index_copy_(0, d64, new)),
+                           reps=5)
+        b_ms, b_by = bound(n * ((F + 4 * C + 8) + (F + 4 * C + 4) + 4), 0)
+        out.append(dict(F=F, n=n, moved=int((new != old).sum()), ms=ms,
+                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                        bound_by=b_by))
+        print(f"efb: partition move F={F} n={n} moved {out[-1]['moved']}: "
+              f"{ms:.4f} ms device, plain {plain_ms:.3f} ms, index_copy_ "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return out
+
+
+def efb_parity_data(flip, seed=5):
+    """N_PARITY + N_PARITY_HOLDOUT Criteo-shaped rows (``flip`` of the
+    indicator entries set to 1) and 8 sparse continuous columns in two
+    exclusive groups of 4 (one of a group non-zero on 2/3 of the rows,
+    signed values on a grid of 0.25)."""
+    n = N_PARITY + N_PARITY_HOLDOUT
+    X, y = synth_criteo(n, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    if flip:
+        ind = X[:, 39:]
+        ind[rng.random(ind.shape) < flip] = 1.0
+    cols = [X]
+    for _ in range(2):
+        sel = rng.integers(0, 6, size=n)
+        v = np.round(rng.lognormal(size=(n, 4)) * 4) / 4
+        v *= np.where(rng.random((n, 4)) < 0.3, -1.0, 1.0)
+        cols.append(np.where(sel[:, None] == np.arange(4)[None, :], v, 0.0))
+    return np.hstack(cols), y
+
+
+def efb_parity_run(lgt, th, tc, tp, smi):
+    """Bundled training of 20k Criteo-shaped rows with sparse continuous
+    columns, 5 rounds, on the card and on the CPU from the same draws: the
+    masked, GOSS and partition paths, exact gradients, max_conflict_rate
+    0.2 (lossy bundles) and CSR input. The same bundles, split lines
+    identical (exact gradients: or every tree keeps the same rows in each
+    leaf, as kernel A adds floats in another order than the plain
+    version), predictions within PARITY_PRED_TOL. Then the masked case
+    once more with the binary objective, reported and not held (see
+    EFB_PARITY_OBJECTIVE)."""
+    import scipy.sparse as sp
+    out = {}
+    th.multi_leaf_histogram.launches = 0
+    tc.compact_by_mask.launches = 0
+    tp.partition_move.launches = 0
+    cases = [(c, EFB_PARITY_OBJECTIVE) + v
+             for c, v in EFB_PARITY_CASES.items()]
+    cases.append(("binary_masked", {"objective": "binary"})
+                 + EFB_PARITY_CASES["masked"])
+    for case, obj, flip, csr, extra in cases:
+        X, y = efb_parity_data(flip)
+        Xt = sp.csr_matrix(X[:N_PARITY]) if csr else X[:N_PARITY]
+        res = {}
+        for dev in ("cuda", "cpu"):
+            bst = lgt.train(
+                dict(PARITY_PARAMS, device_type=dev, **obj, **extra),
+                lgt.Dataset(Xt, label=y[:N_PARITY],
+                            categorical_feature=CRITEO_CATS),
+                num_boost_round=PARITY_ROUNDS, noise=SameDraws(dev))
+            eng = bst.engine
+            if not (eng.has_bundles and not eng.use_goss_compact
+                    and eng.hist_partition == ("tpu_hist_partition"
+                                               in extra)):
+                raise AssertionError(f"efb card against CPU {case}: engine")
+            res[dev] = (split_lines(bst.model_to_string()),
+                        bst.predict(X[N_PARITY:]), eng.bundle_plan,
+                        bst.predict(X[:N_PARITY], pred_leaf=True))
+        equal = res["cuda"][0] == res["cpu"][0]
+        same_rows = all(
+            len(set(zip(a.tolist(), b.tolist())))
+            == len(set(a.tolist())) == len(set(b.tolist()))
+            for a, b in zip(res["cuda"][3].T, res["cpu"][3].T))
+        diff = float(np.max(np.abs(res["cuda"][1] - res["cpu"][1])
+                            / np.maximum(1.0, np.abs(res["cpu"][1]))))
+        plan = res["cpu"][2]
+        out[case] = dict(split_lines_equal=equal, same_leaf_rows=same_rows,
+                         max_rel_diff=diff, n_phys=plan.n_phys,
+                         bundles=len(plan.bundles))
+        print(f"efb: card against CPU, {case} ({obj['objective']}): "
+              f"{plan.n_phys} physical columns of {X.shape[1]}, split lines "
+              f"{'identical' if equal else 'DIFFER'}, the same rows in "
+              f"every leaf {same_rows}, predictions max |diff| / max(1, "
+              f"|CPU|) {diff:.3g}"
+              + (f" (reported, not held: {EFB_BINARY_NOTE})"
+                 if case == "binary_masked" else ""), flush=True)
+        if case == "binary_masked":
+            continue
+        if not (res["cuda"][2].bundles == plan.bundles
+                and (equal or (case == "exact" and same_rows))
+                and diff <= PARITY_PRED_TOL):
+            raise AssertionError(f"efb card against CPU, {case}: {out}")
+    out["launches"] = {"histogram": th.multi_leaf_histogram.launches,
+                       "compact": tc.compact_by_mask.launches,
+                       "partition": tp.partition_move.launches}
+    if not (out["launches"]["histogram"] > 0
+            and out["launches"]["partition"] > 0
+            and out["launches"]["compact"] == 0):
+        raise AssertionError(f"efb card against CPU: launches "
+                             f"{out['launches']}")
+    return out
+
+
+def efb_phase(lgt, th, tc, tp, serial, gbdt, smi, criteo):
+    """Exclusive Feature Bundling at the Criteo shape, and bundled
+    training (dense and CSR input) on the card against the CPU."""
+    t0 = time.time()
+    res = {"criteo": efb_criteo_run(lgt, th, tc, tp, serial, gbdt, smi,
+                                    criteo),
+           "card_vs_cpu": efb_parity_run(lgt, th, tc, tp, smi)}
+    res["seconds"] = time.time() - t0
+    print(f"efb phase: {res['seconds']:.1f} s", flush=True)
     return res
 
 
@@ -2666,7 +2967,11 @@ def main(argv):
         objectives_phase(lgt, th, tp, serial, smi)
         return 0
     if "--only-categorical" in argv:
-        categorical_phase(lgt, th, tc, tp, serial, gbdt, smi)
+        categorical_phase(lgt, th, tc, tp, serial, gbdt, smi,
+                          criteo_data(lgt))
+        return 0
+    if "--only-efb" in argv:
+        efb_phase(lgt, th, tc, tp, serial, gbdt, smi, criteo_data(lgt))
         return 0
     if "--only-ranking" in argv:
         ranking_phase(lgt, th, tc, tp, serial, gbdt, smi)
@@ -2685,7 +2990,10 @@ def main(argv):
     del rec
     sweep = partition_sweep_phase(lgt, tp)
     objs = objectives_phase(lgt, th, tp, serial, smi)
-    cat = categorical_phase(lgt, th, tc, tp, serial, gbdt, smi)
+    criteo = criteo_data(lgt)
+    cat = categorical_phase(lgt, th, tc, tp, serial, gbdt, smi, criteo)
+    efb = efb_phase(lgt, th, tc, tp, serial, gbdt, smi, criteo)
+    del criteo
     rank = ranking_phase(lgt, th, tc, tp, serial, gbdt, smi)
 
     h, c, p = hist["masked"], comp["goss"], part["half"]
@@ -2706,6 +3014,9 @@ def main(argv):
                    for p in CRITEO_PATHS},
                 "categorical_card_vs_cpu":
                     cat["card_vs_cpu"]["launches"][key],
+                **{f"efb_{p}": efb["criteo"][p]["launches"][key]
+                   for p in ["unbundled"] + list(CRITEO_PATHS)},
+                "efb_card_vs_cpu": efb["card_vs_cpu"]["launches"][key],
                 **{f"mslr_{p}": rank["mslr"][p]["launches"][key]
                    for p in list(MSLR_PATHS) + list(MSLR_SIDE)},
                 "mslr_lengths": rank["lengths"]["launches"].get(key, 0),
@@ -2755,7 +3066,8 @@ def main(argv):
              max_abs_diff=h["int_max_abs_err"], kernel_ms=h["int_ms"],
              shapes={k: v for k, v in hist.items()},
              replay=[{k: r[k] for k in REPLAY_KEYS} for r in replay],
-             replay_mslr=rank["mslr"]["held_against_plain"]["replay"]),
+             replay_mslr=rank["mslr"]["held_against_plain"]["replay"],
+             held_efb=efb["criteo"]["held_against_plain"]),
         dict(name="compact_by_mask", route="cuda",
              source="lightgbm_tpu_torch/csrc/compact.cu",
              core="lightgbm_tpu_torch/csrc/stable_partition.cuh",
@@ -2787,7 +3099,7 @@ def main(argv):
     ], "train": dict({k: v for k, v in train.items()
                       if k not in ("trees_leaves",)}, full_row=full,
                      partition_sweep=sweep, objectives=objs,
-                     categorical=cat, ranking=rank)}
+                     categorical=cat, efb=efb, ranking=rank)}
     for v in (kernels_line["train"]["masked_it_per_s"],
               kernels_line["train"]["goss_it_per_s"]):
         if not math.isfinite(v):

@@ -11,7 +11,9 @@ objective, with K trees an iteration for multiclass
 per-tree feature_fraction and the leaf-ordered row partition of
 ``tpu_hist_partition``) and GOSS steps (masked, or with the compacted
 histogram buffer of ``tpu_goss_compact``), exact or quantized gradients
-with stochastic rounding, categorical features (bitset splits) and the
+with stochastic rounding, categorical features (bitset splits), Exclusive
+Feature Bundling (``enable_bundle``: the training rows are the bundled
+physical matrix, valid sets and predict stay logical) and the
 host leaf renewal of L1, quantile and MAPE, and the ranking objectives
 (query-grouped gradients; rank_xendcg's per-iteration gammas;
 position-debiased lambdarank's per-position state, threaded from one
@@ -36,7 +38,8 @@ import torch
 from .. import capabilities
 from ..config import Config
 from ..io.dataset import Dataset
-from ..learner.serial import GrowConfig, grow_tree
+from ..io.bundling import apply_bundles, find_bundles, plan_bundles
+from ..learner.serial import BundleMaps, GrowConfig, grow_tree
 from ..metric import eval_metric_rows, metrics_for_config
 from ..objective import Objective, create_objective
 from ..ops.compact import compact_by_mask, compaction_out_cols
@@ -71,7 +74,9 @@ class DeviceData:
     row-major ``[n_pad, F]`` uint8 bins, optionally the feature-major
     ``[F, n_pad]`` copy the histogram and compaction kernels read, and
     label / weight / validity padded to ``n_pad`` rows (a multiple of
-    ``rows_per_block``). Padding rows are bin 0 with validity 0."""
+    ``rows_per_block``). Padding rows are bin 0 with validity 0. Under
+    EFB the training set's bins are the bundled ``[n_pad, F_phys]``
+    matrix."""
 
     def __init__(self, bins: torch.Tensor, bins_t: Optional[torch.Tensor],
                  n: int, label: Optional[torch.Tensor],
@@ -91,12 +96,15 @@ class DeviceData:
 
     @classmethod
     def from_dataset(cls, ds: Dataset, rows_per_block: int,
-                     device: torch.device, transposed: bool
-                     ) -> "DeviceData":
+                     device: torch.device, transposed: bool,
+                     binned: Optional[np.ndarray] = None) -> "DeviceData":
+        """``binned`` (the bundled matrix) takes the place of the
+        dataset's own bins."""
         ds.construct()
         n = ds.num_data
         n_pad = pad_rows(n, rows_per_block)
-        binned = ds.binned
+        if binned is None:
+            binned = ds.binned
         if n_pad > n:
             binned = np.concatenate(
                 [binned, np.zeros((n_pad - n, binned.shape[1]),
@@ -246,7 +254,13 @@ class GBDT:
                                   pad_rows(max(1, n), 256))
         F = len(self.train_set.used_features)
         num_bin = self.train_set.feature_num_bins()
-        self.B = max(8, _ceil_to(int(num_bin.max()) if F else 2, 8))
+        self._probe_bundles(F, num_bin)
+        max_num_bin = int(num_bin.max()) if F else 2
+        if self.has_bundles:
+            # one width covers the physical scan and the logical expansion
+            max_num_bin = max(max_num_bin,
+                              int(self.bundle_plan.phys_num_bin.max()))
+        self.B = max(8, _ceil_to(max_num_bin, 8))
         is_cat = np.array(
             [self.train_set.bin_mappers[f].bin_type == "categorical"
              for f in self.train_set.used_features], dtype=bool)
@@ -262,9 +276,15 @@ class GBDT:
         self.feat_is_cat = torch.as_tensor(is_cat, device=dev)
         self.num_features = F
         self.allowed = torch.ones(F, dtype=torch.bool, device=dev)
+        self.bundle = None
+        bundled = None
+        if self.has_bundles:
+            bundled = apply_bundles(self.train_set.binned, self.bundle_plan)
+            self.bundle = BundleMaps.from_plan(self.bundle_plan, num_bin,
+                                               self.B, dev)
         self.data = DeviceData.from_dataset(self.train_set,
                                             self.rows_per_block, dev,
-                                            transposed=True)
+                                            transposed=True, binned=bundled)
         self.hist_partition = self._engage_partition(F)
         label = md.label
         # BoostFromAverage for one tree an iteration; per-class init
@@ -302,7 +322,8 @@ class GBDT:
             max_cat_threshold=c.max_cat_threshold,
             cat_smooth=c.cat_smooth, cat_l2=c.cat_l2,
             max_cat_to_onehot=c.max_cat_to_onehot,
-            min_data_per_group=c.min_data_per_group)
+            min_data_per_group=c.min_data_per_group,
+            has_bundles=self.has_bundles)
 
         # ---- GOSS (goss.hpp) ------------------------------------------
         # goss.hpp truncates the DOUBLE product rate * cnt; the counts
@@ -317,10 +338,11 @@ class GBDT:
         self.goss_n_sub = compaction_out_cols(
             int(np.ceil(self.data.n_pad * frac)) + 8192,
             self.compact_rpb, self.rows_per_block)
-        # renewing objectives and position debiasing keep the masked
+        # renewing objectives, position debiasing and EFB keep the masked
         # GOSS path, as the JAX package does
         self.use_goss_compact = (
             bool(c.tpu_goss_compact) and c.data_sample_strategy == "goss"
+            and not self.has_bundles
             and not self.objective.renews
             and not self.objective.has_pos_state
             and frac < 1.0 and self.compact_rpb >= 256
@@ -335,6 +357,38 @@ class GBDT:
         # rows the histogram scans touched, summed over all trees (the
         # JAX package's hist.rows_scanned counter)
         self.hist_rows_scanned = 0.0
+
+    def _probe_bundles(self, F: int, num_bin: np.ndarray) -> None:
+        """EFB (``enable_bundle``; FindGroups / FastFeatureBundling):
+        bundle mutually exclusive sparse features into shared physical
+        columns, as the JAX package's engine does. Eligible features are
+        numerical without missing values; a feature's default is the bin
+        of 0.0. Sets ``has_bundles`` and ``bundle_plan``."""
+        c = self.config
+        self.has_bundles = False
+        self.bundle_plan = None
+        if not (c.enable_bundle and F >= 2):
+            return
+        mappers = [self.train_set.bin_mappers[f]
+                   for f in self.train_set.used_features]
+        eligible = np.array([m.bin_type != "categorical"
+                             and m.missing_type == "none" for m in mappers],
+                            dtype=bool)
+        if int(eligible.sum()) < 2:
+            return
+        default_bins = np.array(
+            [m.value_to_bin(0.0) if eligible[i] else 0
+             for i, m in enumerate(mappers)], dtype=np.int32)
+        multi = find_bundles(self.train_set.binned, num_bin, eligible,
+                             default_bins,
+                             max_conflict_rate=c.max_conflict_rate,
+                             seed=c.data_random_seed)
+        if multi:
+            self.bundle_plan = plan_bundles(num_bin, default_bins, multi)
+            self.has_bundles = True
+            log.info(f"EFB: bundled {sum(len(b) for b in multi)} features "
+                     f"into {len(multi)} bundles ({F} -> "
+                     f"{self.bundle_plan.n_phys} columns)")
 
     def _engage_partition(self, F: int) -> bool:
         """``tpu_hist_partition``: "true" engages the leaf-ordered row
@@ -481,7 +535,8 @@ class GBDT:
                                      mask_count, d.n_pad, k)
             out.append(grow_tree(d.bins_t, vals, self.feat_num_bin,
                                  self.feat_has_nan, allowed, self.grow_cfg,
-                                 chan_scale=scale, is_cat=self.feat_is_cat))
+                                 chan_scale=scale, is_cat=self.feat_is_cat,
+                                 bundle=self.bundle))
         return out
 
     def _step_goss_compact(self, allowed: torch.Tensor):
@@ -508,7 +563,8 @@ class GBDT:
             out.append(grow_tree(d.bins_t, vals_c, self.feat_num_bin,
                                  self.feat_has_nan, allowed, cfg,
                                  chan_scale=scale, compact_bins_t=bins_t_c,
-                                 is_cat=self.feat_is_cat))
+                                 is_cat=self.feat_is_cat,
+                                 bundle=self.bundle))
         return out
 
     def goss_active(self) -> bool:
@@ -645,7 +701,8 @@ class GBDT:
 
     def predict(self, X, raw_score: bool = False, start_iteration: int = 0,
                 num_iteration: int = -1) -> np.ndarray:
-        """Predict on raw features (binned through the train mappers):
+        """Predict on raw features, dense or scipy sparse (binned through
+        the train mappers, a sparse matrix one CSC column at a time):
         ``[n]`` for one tree an iteration, ``[n, K]`` for multiclass.
         Iterations ``[start_iteration, start_iteration + num_iteration)``
         (all from ``start_iteration`` when ``num_iteration <= 0``); the

@@ -10,10 +10,13 @@ leaf-ordered row partition) or under GOSS (with the compacted histogram
 buffer), on exact or quantized gradients, with categorical features
 (given to ``Dataset(categorical_feature=...)``; the
 ``categorical_feature`` parameter is ignored, as the JAX package ignores
-it outside streaming), every metric (ndcg@k and map@k included) and early
-stopping. Every other feature of the JAX package is FATAL here with a
-message that names it, so an unported parameter fails loudly instead of
-silently training something else.
+it outside streaming), with Exclusive Feature Bundling as the JAX package
+does it (``enable_bundle``, on by default, and ``max_conflict_rate``, lossy
+above 0 in both packages alike), on dense or scipy sparse input, every
+metric (ndcg@k and map@k included) and early stopping. Every other
+feature of the JAX package is FATAL here with a message that names it, so
+an unported parameter fails loudly instead of silently training something
+else.
 """
 from __future__ import annotations
 

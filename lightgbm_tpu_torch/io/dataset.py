@@ -3,7 +3,8 @@
 Reference: src/io/dataset.cpp, src/io/metadata.cpp,
 include/LightGBM/dataset.h (UNVERIFIED — empty mount, see SURVEY.md banner).
 
-The port of ``lightgbm_tpu/io/dataset.py`` for dense numeric input: the
+The port of ``lightgbm_tpu/io/dataset.py`` for in-memory numeric input,
+dense or scipy sparse: the
 binned matrix is ONE packed ``[n_rows, n_used_features]`` uint8 array
 (every feature has <= 256 bins under ``max_bin <= 255``), built on the
 host with the same bin mappers and the same bytes as the JAX package.
@@ -13,8 +14,10 @@ for the ranking objectives and metrics) becomes the cumulative
 ``query_boundaries``; ``set_position`` / ``set_field("position", ...)``
 attach per-row presentation positions (LambdaRank's position debiasing).
 The ``group_column`` parameter belongs to file input and is ignored for
-in-memory data, as the JAX package ignores it. Sparse, pandas (category
-columns included), file and streamed inputs are not ported yet.
+in-memory data, as the JAX package ignores it. A scipy sparse matrix (CSR,
+CSC, ...) is binned from CSC one column at a time, never densified whole;
+its bin mappers sample CSR rows. Pandas (category columns included), file
+and streamed inputs are not ported yet.
 """
 from __future__ import annotations
 
@@ -51,6 +54,12 @@ class Metadata:
         if self.query_boundaries is None:
             return 0
         return len(self.query_boundaries) - 1
+
+
+def is_sparse(data) -> bool:
+    """A scipy sparse matrix (of any format)."""
+    return (hasattr(data, "tocsc") and hasattr(data, "nnz")
+            and not isinstance(data, np.ndarray))
 
 
 def _coerce_1d(a) -> np.ndarray:
@@ -98,11 +107,14 @@ class Dataset:
 
     # ------------------------------------------------------------------
     @staticmethod
-    def _to_matrix(data) -> np.ndarray:
-        """Dense 2-D float matrix from numpy / pandas / list-of-lists."""
-        if hasattr(data, "toarray") or isinstance(data, (str, bytes)):
-            log.fatal("only dense in-memory input is supported by this "
-                      "package yet (no sparse matrices or files)")
+    def _to_matrix(data):
+        """Dense 2-D float matrix from numpy / pandas / list-of-lists, or
+        the CSC form of a scipy sparse matrix."""
+        if isinstance(data, (str, bytes)):
+            log.fatal("only in-memory input is supported by this package "
+                      "yet (no files)")
+        if is_sparse(data):
+            return data.tocsc()
         if hasattr(data, "values") and hasattr(data, "columns"):  # pandas
             return np.asarray(data.values, dtype=np.float64)
         if isinstance(data, np.ndarray) and data.ndim == 2 \
@@ -176,21 +188,32 @@ class Dataset:
             self.data = None
         return self
 
-    def bin_rows(self, X: np.ndarray) -> np.ndarray:
+    def bin_rows(self, X) -> np.ndarray:
         """Pack ``X``'s used columns into the uint8 binned matrix
-        ``[n, n_used]`` with this dataset's mappers. Columns bin on a
-        thread pool for large inputs (numpy's searchsorted releases the
-        GIL); each column's bytes are independent of the pool."""
+        ``[n, n_used]`` with this dataset's mappers. ``X`` is dense or CSC
+        (``_to_matrix``); a CSC column is made dense one at a time. Columns
+        bin on a thread pool for large inputs (numpy's searchsorted
+        releases the GIL); each column's bytes are independent of the
+        pool."""
         used = self.used_features
         n_rows = X.shape[0]
         if max((self.bin_mappers[f].num_bin for f in used), default=2) > 256:
             log.fatal("features with more than 256 bins (max_bin > 255) "
                       "are not supported by this package yet")
         out = np.empty((n_rows, len(used)), dtype=np.uint8)
+        sparse = is_sparse(X)
+
+        def column(f):
+            if not sparse:
+                return X[:, f]
+            col = np.zeros(n_rows, np.float64)
+            sl = slice(X.indptr[f], X.indptr[f + 1])
+            col[X.indices[sl]] = X.data[sl]
+            return col
 
         def bin_one(jf):
             j, f = jf
-            out[:, j] = self.bin_mappers[f].values_to_bins(X[:, f])
+            out[:, j] = self.bin_mappers[f].values_to_bins(column(f))
 
         n_threads = min(resolve_ingest_threads(0), max(len(used), 1))
         if n_threads > 1 and n_rows * len(used) >= 2_000_000:

@@ -138,6 +138,16 @@ class HostModel:
                 start_iteration: int = 0, num_iteration: int = -1,
                 pred_leaf: bool = False) -> np.ndarray:
         from .dataset import Dataset as _DS
+        from .dataset import is_sparse
+        if is_sparse(data) and data.shape[0] > 0:
+            # raw feature values, densified in bounded row chunks
+            csr = data.tocsr()
+            chunk = 65536
+            return np.concatenate([self.predict(
+                csr[i:i + chunk].toarray(), raw_score=raw_score,
+                start_iteration=start_iteration, num_iteration=num_iteration,
+                pred_leaf=pred_leaf) for i in range(0, csr.shape[0], chunk)],
+                axis=0)
         X = _DS._to_matrix(data)
         n = X.shape[0]
         total_iters = len(self.trees) // max(self.num_tree_per_iteration, 1)

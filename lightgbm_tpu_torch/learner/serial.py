@@ -25,7 +25,12 @@ of ``GrowConfig`` the main path sets:
 - categorical splits (``has_categorical``): a split's left set is a
   bitset over bins, and every row pass (``leaf_id``, the compacted
   buffer's ids, the partition move) routes a categorical split's rows by
-  a bitset test.
+  a bitset test;
+- EFB (``has_bundles``): the bins are the bundled physical matrix
+  (``io/bundling.py``). The pool, the sibling subtraction and the kernel
+  stay physical; the split search sees each leaf's histogram expanded to
+  the logical features (``expand_hist``), and every row pass reads the
+  winning feature's physical column and inverts the bundle relabeling.
 
 The JAX package's ``lax.while_loop`` becomes a host-driven loop of device
 ops with one host sync per round (the top-k leaf election), plus, under
@@ -33,17 +38,18 @@ the partition, one read of the largest elected span (the budget that the
 JAX package picks on the device with ``lax.switch``). Tree arrays carry
 one trailing TRASH slot (node L-1, leaf L) so inactive batch lanes write
 harmlessly, exactly as in the JAX package, so both produce the same
-arrays. Constraints, EFB, forced splits, rebuild mode and the distributed
+arrays. Constraints, forced splits, rebuild mode and the distributed
 modes are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..io.bundling import build_expand_maps
 from ..ops.histogram import multi_leaf_histogram
 from ..ops.partition import partition_move, slice_spans, span_budgets, \
     update_tables
@@ -83,6 +89,9 @@ class GrowConfig:
     cat_l2: float = 10.0
     max_cat_to_onehot: int = 4
     min_data_per_group: int = 100
+    # EFB: the bins are the bundled physical matrix (grow_tree's `bundle`
+    # argument); the split search expands histograms to logical features
+    has_bundles: bool = False
 
     @property
     def cat_words(self) -> int:
@@ -104,6 +113,101 @@ class GrowConfig:
             min_data_per_group=self.min_data_per_group)
 
 
+class BundleMaps(NamedTuple):
+    """Device form of an EFB plan (``io/bundling.py``): the expansion
+    gather ``map_pf / map_pb / map_valid`` ``[F, B]``, ``at_default``
+    ``[F, B]`` float32 (1 at each bundled feature's default bin), and per
+    logical feature ``bundled``, ``phys_col``, ``start`` and
+    ``default_bin`` ``[F]`` for routing rows on the physical columns;
+    ``bundled_idx`` ``[F_b]`` lists the bundled features and
+    ``bundled_bins`` is the most bins one of them has (past it their
+    expanded bins are zero)."""
+
+    map_pf: torch.Tensor
+    map_pb: torch.Tensor
+    map_valid: torch.Tensor
+    at_default: torch.Tensor
+    bundled: torch.Tensor
+    phys_col: torch.Tensor
+    start: torch.Tensor
+    default_bin: torch.Tensor
+    bundled_idx: torch.Tensor
+    bundled_bins: int
+
+    @classmethod
+    def from_plan(cls, plan, num_bins: np.ndarray, B: int,
+                  device: torch.device) -> "BundleMaps":
+        mpf, mpb, mvalid, mdef = build_expand_maps(plan, num_bins, B)
+
+        def dev(a, dtype=None):
+            t = torch.as_tensor(a, device=device)
+            return t if dtype is None else t.to(dtype)
+
+        idx = np.flatnonzero(plan.bundled)
+        return cls(dev(mpf, torch.int64), dev(mpb, torch.int64),
+                   dev(mvalid), dev(mdef, torch.float32),
+                   dev(plan.bundled), dev(plan.phys_col, torch.int64),
+                   dev(plan.start, torch.int32),
+                   dev(plan.default_bin, torch.int32),
+                   dev(idx, torch.int64),
+                   int(np.asarray(num_bins)[idx].max(initial=1)))
+
+
+# XLA's CPU backend sums jnp.sum over an axis of more than 32 elements by
+# windows of 32 (its tree-reduction rewrite)
+_SUM_WINDOW = 32
+
+
+def sum_bins(x: torch.Tensor, length: Optional[int] = None
+             ) -> torch.Tensor:
+    """Sum over axis 2 of ``[C, F, n, ...]`` in the order XLA's CPU backend
+    sums ``jnp.sum`` over an axis of ``length`` (default n) elements, the
+    ones past n being +0.0: the axis is padded with zeros to a multiple of
+    32 (half the padding in front, rounded down), each window of 32 is
+    summed in sequence from 0, then the window sums the same way.
+    ``torch.sum`` adds in other orders on the CPU and the card, which
+    moves a residual by ULPs. A sum in sequence from +0.0 is never -0.0,
+    so adding zeros leaves it as it is: windows past the last entry are
+    left out, and so are the leading pad's adds."""
+    N = x.shape[2] if length is None else length
+    n = x.shape[2]
+    nw = -(-N // _SUM_WINDOW)
+    lo = (nw * _SUM_WINDOW - N) // 2
+    if N <= _SUM_WINDOW or lo + n <= _SUM_WINDOW:
+        # every entry in the first window; the other windows sum to +0.0
+        acc = torch.zeros_like(x[:, :, 0])
+        for v in x.unbind(2):
+            acc = acc + v
+        return acc
+    used = -(-(lo + n) // _SUM_WINDOW)
+    pad = used * _SUM_WINDOW - lo - n
+    z = x.new_zeros(x.shape[:2] + (max(lo, pad),) + x.shape[3:])
+    x = torch.cat([z[:, :, :lo], x, z[:, :, :pad]], dim=2)
+    w = x.reshape(x.shape[:2] + (used, _SUM_WINDOW) + x.shape[3:])
+    acc = torch.zeros_like(w[:, :, :, 0])
+    for v in w.unbind(3):
+        acc = acc + v
+    return sum_bins(acc, nw)
+
+
+def expand_hist(hists: torch.Tensor, totals: torch.Tensor,
+                bundle: BundleMaps) -> torch.Tensor:
+    """Physical ``[C, F_phys, B, 3]`` histograms -> logical ``[C, F, B,
+    3]`` (the JAX package's ``expand_hist``): each feature's bins gathered
+    through ``map_pf / map_pb`` (zero where not ``map_valid``), and each
+    bundled feature's default-bin mass recovered as the leaf total
+    ``totals [C, 3]`` less its other bins, injected at ``at_default``.
+    The residual is summed for the bundled features only, over their
+    bins: elsewhere ``at_default`` is 0 and the bins are +0.0."""
+    g = hists[:, bundle.map_pf, bundle.map_pb]
+    g = torch.where(bundle.map_valid[None, :, :, None], g, 0.0)
+    gb = g[:, bundle.bundled_idx, :bundle.bundled_bins]
+    resid = torch.zeros_like(g[:, :, 0])
+    resid[:, bundle.bundled_idx] = (totals[:, None, :]
+                                    - sum_bins(gb, g.shape[2]))
+    return g + bundle.at_default[None, :, :, None] * resid[:, :, None, :]
+
+
 def _top_leaves(gains: torch.Tensor, k: int):
     """The k largest gains, ties to the lower leaf id (``lax.top_k``'s
     order), as host arrays."""
@@ -116,19 +220,33 @@ def _apply_splits(leaf_vec: torch.Tensor, bins_t: torch.Tensor,
                   thr: torch.Tensor, dl: torch.Tensor, new_ids: torch.Tensor,
                   num_bin: torch.Tensor, has_nan: torch.Tensor,
                   cat: Optional[torch.Tensor] = None,
-                  bitset: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  bitset: Optional[torch.Tensor] = None,
+                  bundle: Optional[BundleMaps] = None) -> torch.Tensor:
     """Route one row set through this round's splits: a row in a split
     leaf moves to the lane's new (right) leaf unless it goes left.
     ``bins_t`` is the feature-major ``[F, n]`` matrix of those rows. With
     ``cat`` ``[Kb]`` / ``bitset`` ``[Kb, W]`` a categorical lane sends a
     row left iff bit ``col & 31`` of word ``col >> 5`` is set (NaN and
-    unseen categories, bin 0, are never in the set)."""
+    unseen categories, bin 0, are never in the set). With ``bundle``
+    ``bins_t`` is the physical ``[F_phys, n]`` matrix: the row reads the
+    feature's physical column, and a bundled feature's bin is
+    ``idx + (idx >= default)`` for ``idx = col - start`` in ``[0, nb - 2]``
+    and its default bin otherwise (another member's bin, or all at their
+    defaults)."""
     lane = leaf_lane[leaf_vec.to(torch.int64)]                # [n], -1 = none
     sel = lane >= 0
     ln = lane.clamp(min=0)
     feat_r = feat[ln].to(torch.int64)
-    col = torch.gather(bins_t, 0, feat_r[None, :])[0].to(torch.int32)
+    pcol_r = bundle.phys_col[feat_r] if bundle is not None else feat_r
+    col = torch.gather(bins_t, 0, pcol_r[None, :])[0].to(torch.int32)
     nb_r = num_bin[feat_r]
+    if bundle is not None:
+        idx = col - bundle.start[feat_r]
+        def_r = bundle.default_bin[feat_r]
+        in_r = (idx >= 0) & (idx <= nb_r - 2)
+        b_log = idx + (idx >= def_r).to(torch.int32)
+        col = torch.where(bundle.bundled[feat_r],
+                          torch.where(in_r, b_log, def_r), col)
     missing = has_nan[feat_r] & (col == nb_r - 1)
     goes_left = torch.where(missing, dl[ln], col <= thr[ln])
     if cat is not None:
@@ -144,12 +262,14 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
               allowed_feature: torch.Tensor, cfg: GrowConfig,
               chan_scale: Optional[torch.Tensor] = None,
               compact_bins_t: Optional[torch.Tensor] = None,
-              is_cat: Optional[torch.Tensor] = None
+              is_cat: Optional[torch.Tensor] = None,
+              bundle: Optional[BundleMaps] = None
               ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Grow one tree.
 
     Args:
-      bins_t: ``[F, n]`` uint8 feature-major binned matrix of all rows.
+      bins_t: ``[F, n]`` uint8 feature-major binned matrix of all rows
+        (with ``cfg.has_bundles``, the physical ``[F_phys, n]`` one).
       vals: ``[n, 3]`` float32 (grad*mask, hess*mask, count-mask) — or,
         with ``compact_bins_t``, the compacted buffer's ``[n_c, 3]``
         values.
@@ -163,6 +283,9 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         are ``vals``) while ``leaf_id`` covers all rows.
       is_cat: ``[F]`` bool categorical features; read only when
         ``cfg.has_categorical``.
+      bundle: the EFB maps of ``bins_t``'s columns; read only when
+        ``cfg.has_bundles``. ``feat_num_bin``, ``feat_has_nan``,
+        ``allowed_feature``, ``is_cat`` and the tree arrays stay logical.
 
     Returns:
       (tree dict of fixed-size arrays + ``num_leaves`` + ``hist_rows``,
@@ -175,7 +298,7 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
       the padded spans under the partition.
     """
     dev = bins_t.device
-    F, n_rows = bins_t.shape
+    n_rows = bins_t.shape[1]
     L = cfg.num_leaves
     B = cfg.num_bins
     Kb = max(1, min(cfg.leaf_batch, L))
@@ -203,8 +326,12 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
     # the categorical scan reads those features' histograms only (one
     # host sync a tree)
     cat_idx = torch.nonzero(is_cat)[:, 0] if categorical else None
+    if not cfg.has_bundles:
+        bundle = None
 
     def search_best(hists, sums):
+        if bundle is not None:
+            hists = expand_hist(hists, sums, bundle)
         return find_best_split(hists, sums, feat_num_bin, feat_has_nan,
                                allowed_feature, scfg,
                                is_cat=is_cat if categorical else None,
@@ -312,6 +439,7 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
             cat_sel = best_is_cat[tl_safe]
             bs_sel = best_cat_bitset[tl_safe]
             route = dict(cat=cat_sel, bitset=bs_sel)
+        route["bundle"] = bundle
 
         # ---- partition: apply all selected splits in one row pass ------
         leaf_lane = torch.full((L + 1,), -1, dtype=torch.int64, device=dev)

@@ -828,6 +828,141 @@ def test_bitset_routing_on_the_card_equals_the_cpu(cuda_device):
     assert 0 < int(moved.sum()) < n
 
 
+# ---- EFB and sparse input ---------------------------------------------------
+def _bundle_data(n, seed=0, flip=0.0):
+    """3 normal columns, 4 groups of 8 one-hot indicators (a ninth state:
+    the group all zero; ``flip`` of the entries set to 1) and 2 groups of
+    4 sparse continuous columns, one of a group non-zero on 2/3 of the
+    rows (the data of ``tests/test_torch_bundling.py``)."""
+    rng = np.random.default_rng(seed)
+    groups = [rng.normal(size=(n, 3))]
+    for _ in range(4):
+        sel = rng.integers(0, 9, size=n)
+        m = (sel[:, None] == np.arange(8)[None, :]).astype(np.float64)
+        if flip:
+            m[rng.random(m.shape) < flip] = 1.0
+        groups.append(m)
+    for _ in range(2):
+        sel = rng.integers(0, 6, size=n)
+        v = np.round(rng.lognormal(size=(n, 4)) * 4) / 4
+        v *= np.where(rng.random((n, 4)) < 0.3, -1.0, 1.0)
+        groups.append(np.where(sel[:, None] == np.arange(4)[None, :], v,
+                               0.0))
+    X = np.hstack(groups)
+    logit = X[:, 0] + X[:, 3] - X[:, 12] + 0.5 * X[:, 35] - 0.7 * X[:, 40]
+    return X, (logit + rng.normal(size=n) > 0).astype(np.float64)
+
+
+# case -> (flip, params); GOSS starts at iteration 1/lr = 2
+EFB_CASES = {
+    "masked": (0.0, {}),
+    "goss": (0.0, {"data_sample_strategy": "goss", "top_rate": 0.2,
+                   "other_rate": 0.1}),
+    "partition": (0.0, {"tpu_hist_partition": "true"}),
+    "exact": (0.0, {"use_quantized_grad": False}),
+    "conflicts_0.2": (0.03, {"max_conflict_rate": 0.2,
+                             "tpu_hist_partition": "true"}),
+    "csr_input": (0.0, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(EFB_CASES))
+def test_efb_training_card_matches_cpu(cuda_device, case):
+    """Bundled training on the card and on the CPU from the same data and
+    draws: the same bundles, identical split lines (on exact gradients
+    kernel A adds floats in another order than the plain version, so
+    there the lines may part only where every tree keeps the same rows in
+    each leaf), predictions within 1e-5; kernel A scans the physical
+    columns, B never launches (GOSS stays masked under EFB) and B′ moves
+    the physical columns under the partition."""
+    import scipy.sparse as sp
+
+    import lightgbm_tpu_torch as lgt
+    flip, extra = EFB_CASES[case]
+    n = 4000
+    X, y = _bundle_data(n + 1000, flip=flip)
+    keys = ("split_feature", "threshold", "decision_type", "left_child",
+            "right_child", "num_leaves")
+    out = {}
+    launches0 = (th.multi_leaf_histogram.launches,
+                 tc.compact_by_mask.launches, tp.partition_move.launches)
+    for dev in ("cuda", "cpu"):
+        Xt = sp.csr_matrix(X[:n]) if case == "csr_input" else X[:n]
+        bst = lgt.train(dict({"objective": "binary", "num_leaves": 15,
+                              "learning_rate": 0.5, "tpu_leaf_batch": 4,
+                              "use_quantized_grad": True,
+                              "stochastic_rounding": False, "verbosity": -1,
+                              "device_type": dev}, **extra),
+                        lgt.Dataset(Xt, label=y[:n]), num_boost_round=5,
+                        noise=_SameDraws(dev))
+        eng = bst.engine
+        assert eng.has_bundles and not eng.use_goss_compact
+        assert eng.data.bins_t.shape[0] == eng.bundle_plan.n_phys < 43
+        out[dev] = ([ln for ln in bst.model_to_string().splitlines()
+                     if ln.split("=", 1)[0] in keys], bst.predict(X[n:]),
+                    bst.predict(X[:n], pred_leaf=True),
+                    eng.bundle_plan.bundles)
+    assert th.multi_leaf_histogram.launches > launches0[0]
+    assert tc.compact_by_mask.launches == launches0[1]
+    assert (tp.partition_move.launches > launches0[2]) \
+        == ("tpu_hist_partition" in extra)
+    assert out["cuda"][3] == out["cpu"][3]
+    if out["cuda"][0] != out["cpu"][0]:
+        assert case == "exact"
+        for a, b in zip(out["cuda"][2].T, out["cpu"][2].T):
+            pairs = set(zip(a.tolist(), b.tolist()))
+            assert len(pairs) == len(set(a.tolist())) == len(set(b.tolist()))
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0,
+                               atol=1e-5)
+
+
+def test_expand_and_bundle_routing_on_the_card_equal_the_cpu(cuda_device):
+    """``expand_hist`` (the default-bin residual summed in XLA's CPU
+    order, ``sum_bins``) and ``_apply_splits`` over a bundled matrix give
+    the same bits on the card as on the CPU."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.io.bundling import (apply_bundles, find_bundles,
+                                                plan_bundles)
+    from lightgbm_tpu_torch.learner.serial import (BundleMaps, _apply_splits,
+                                                   expand_hist)
+    X, _ = _bundle_data(20_000, seed=3, flip=0.01)
+    ds = lgt.Dataset(X, label=np.zeros(len(X))).construct()
+    nb = ds.feature_num_bins()
+    ms = [ds.bin_mappers[f] for f in ds.used_features]
+    eligible = np.array([m.missing_type == "none" for m in ms])
+    default = np.array([m.value_to_bin(0.0) for m in ms], np.int32)
+    plan = plan_bundles(nb, default, find_bundles(
+        ds.binned, nb, eligible, default, max_conflict_rate=0.2))
+    phys = apply_bundles(ds.binned, plan)
+    B, F, Kb = 256, len(nb), 6
+    rng = np.random.default_rng(0)
+    h = (rng.normal(size=(8, plan.n_phys, B, 3)) * 50).astype(np.float32)
+    tot = (rng.normal(size=(8, 3)) * 1e3).astype(np.float32)
+    feat = np.array([35, 3, 12, 40, 0, 20], np.int32)
+    assert plan.bundled[feat[:4]].all()
+    leaf0 = torch.from_numpy((np.arange(len(X)) % Kb).astype(np.int32))
+    lane = torch.arange(Kb + 1)
+    lane[Kb] = -1
+    res = {}
+    for dev in ("cuda", "cpu"):
+        bm = BundleMaps.from_plan(plan, nb, B, torch.device(dev))
+        ex = expand_hist(torch.from_numpy(h).to(dev),
+                         torch.from_numpy(tot).to(dev), bm)
+        leaf = _apply_splits(
+            leaf0.to(dev), torch.from_numpy(phys.T.copy()).to(dev),
+            lane.to(dev), torch.from_numpy(feat).to(dev),
+            torch.from_numpy((nb[feat] // 2).astype(np.int32)).to(dev),
+            torch.zeros(Kb, dtype=torch.bool, device=dev),
+            torch.arange(Kb, 2 * Kb, dtype=torch.int32, device=dev),
+            torch.from_numpy(nb).to(dev),
+            torch.zeros(F, dtype=torch.bool, device=dev), bundle=bm)
+        res[dev] = (ex.cpu(), leaf.cpu())
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert torch.equal(a, b)
+    moved = res["cpu"][1] != leaf0
+    assert 0 < int(moved.sum()) < len(X)
+
+
 # ---- ranking ----------------------------------------------------------------
 def _rank_inputs(seed=0, n_queries=300):
     """Uneven queries (1 to 200 documents, one of one, one all zero),
