@@ -16,14 +16,18 @@ ROOT with the quantizer dividing by its level counts as Python numbers,
 as the package did before they became device tensors (on CUDA such a
 division is a product with the reciprocal): a copy of that quantizer
 takes the place of ``boosting.gbdt.quantize``. One line per run: the root,
-the run, the sha256 of the model text, the holdout AUC; the card's name
-and power limit first. It needs a CUDA device and imports neither JAX nor
+the run, the sha256 of the model text, the holdout AUC, and it/s over the
+iterations after the first (the flagship's: after its GOSS switch-over,
+as ``chip_smoke.py`` counts them); the card's name and power limit
+first. Name the roots in turns (``build/parent . . build/parent``) to
+compare their speed within one call. It needs a CUDA device and imports neither JAX nor
 ``lightgbm_tpu``.
 """
 import hashlib
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -60,14 +64,22 @@ def run_one(root, levels_as_numbers):
         ds = lgt.Dataset(X[:n], label=y[:n])
         bst = lgt.Booster(params=dict(params), train_set=ds)
         bst.add_valid(ds.create_valid(X[n:], label=y[n:]), "holdout")
-        for _ in range(cs.ROUNDS):
+        # the flagship's timed iterations are its GOSS ones
+        first = (int(1.0 / params["learning_rate"])
+                 if params.get("data_sample_strategy") == "goss" else 1)
+        for i in range(cs.ROUNDS):
+            if i == first:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
             bst.update()
         torch.cuda.synchronize()
+        it_s = (cs.ROUNDS - first) / (time.perf_counter() - t0)
         [(_, _, auc, _)] = bst.eval_valid()
         digest = hashlib.sha256(bst.model_to_string().encode()).hexdigest()
         print(f"{root}{':levels-as-numbers' if levels_as_numbers else ''} "
               f"{name}: model text sha256 {digest[:16]}, holdout AUC "
-              f"{auc:.6f}", flush=True)
+              f"{auc:.6f}, {it_s:.3f} it/s over iterations {first}-"
+              f"{cs.ROUNDS - 1}", flush=True)
 
 
 def main(argv):

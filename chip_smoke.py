@@ -50,7 +50,7 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
    histogram source under ``build/hist_extra/`` (an earlier
    ``histogram.cu``) is built and timed beside kernel A in turns;
 7. the partition sweep: full-row training with the partition off and
-   forced on in turns (off, on, on, off), 8 rounds a run, at 2M, 8M and
+   forced on in turns (off, on, on, off), 6 rounds a run, at 2M, 8M and
    10M rows: it/s, rows scanned, model text byte-equal (what decides the
    ``tpu_hist_partition=auto`` policy);
 8. the objectives, on the full-row settings: L2 regression on 2M
@@ -108,7 +108,24 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
    gradient's device ms and peak memory, and the share of the padded
    pair work on real documents; then lambdarank (quantized and exact),
    rank_xendcg and position-debiased lambdarank on a 20k-row ranking set
-   on the three paths, on the card and on the CPU.
+   on the three paths, on the card and on the CPU;
+12. the Bosch configuration of ``benchmarks/suite.py``'s ``bench_bosch``
+   at its own size and settings (300,000 x 200, regression, DART with
+   ``max_drop`` 4 under GOSS with the compacted buffer, feature 0
+   monotone increasing, 127 leaves): 14 rounds warm (GOSS from 10), 15
+   timed (it/s, the iterations and trees dropped, the dropped-tree
+   traversal's ms an iteration), 2 traced (idle share, kernel A's and
+   B's device ms, device-to-host copies), train RMSE beside the label's
+   std; one full-row and one GOSS iteration's kernel-A calls (f32 mode,
+   F = 200) held against the plain version (within the f32 tolerance on
+   their own values, bit for bit in int mode and on exact-sum values)
+   and timed, the GOSS compaction (200 bin rows) bit-equal and timed;
+   the response to feature 0 over 201 points at 5 rows must not fall;
+   then seven 20k-row runs on the card and on the CPU (DART + GOSS +
+   monotone, DART masked, DART with the partition forced on, the
+   intermediate method at leaf batch 8, ``monotone_penalty`` 1,
+   ``xgboost_dart_mode``, binary DART): the same drops, split lines
+   identical, predictions within 1e-5.
 
 Each training run sets the kernels' launch counts to 0 just before it
 and reads them just after. The last two lines of standard output are the
@@ -116,8 +133,9 @@ per-kernel JSON line and the result line ``{"ok": true, "device":
 {...}}``; any failure exits non-zero before the result line.
 ``--json-out PATH`` also writes the per-kernel record, replay included,
 to PATH; ``--only-probes``, ``--only-sweep``, ``--only-objectives``,
-``--only-categorical``, ``--only-efb`` and ``--only-ranking`` build the
-kernels, run phase 3, 7, 8, 9, 10 or 11 and stop (no result line). It
+``--only-categorical``, ``--only-efb``, ``--only-ranking`` and
+``--only-bosch`` build the kernels, run phase 3, 7, 8, 9, 10, 11 or 12
+and stop (no result line). It
 needs a CUDA device and imports neither JAX nor ``lightgbm_tpu``.
 """
 import json
@@ -162,9 +180,10 @@ STEP_KERNELS = ("partition_kernel", "compact_kernel")
 # device-to-host copies): partition off, on
 MAX_DTOH = {"false": 28, "true": 36}
 # partition off / forced on in turns at these rows (10M: bench.py's
-# default size), SWEEP_ROUNDS rounds a run
+# default size), SWEEP_ROUNDS rounds a run (6, down from 8 when the Bosch
+# phase joined, to keep the whole script near 600 s)
 SWEEP_ROWS = (2_000_000, 8_000_000, 10_000_000)
-SWEEP_ROUNDS = 8
+SWEEP_ROUNDS = 6
 # the replay numbers the per-kernel JSON line carries (--json-out PATH
 # writes them all)
 REPLAY_KEYS = ("tree", "kind", "n", "live_lanes", "matched_rows",
@@ -242,13 +261,10 @@ EFB_PHYS_COLS = 59
 # EFB card against CPU (on PARITY_PARAMS, N_PARITY Criteo-shaped rows and 8
 # sparse continuous columns): case -> (indicator flip share, CSR input,
 # params); GOSS from iteration 1 / 0.3 = 3 of the 5. The objective is
-# cross_entropy on the 0/1 label: its sigmoid runs in float64, so card and
-# CPU gradients are the same bits. binary keeps float32 torch.sigmoid (the
-# reference's bits on the CPU), whose last bits differ on the card; on
-# this data that moves the quantization scale from the second tree and
-# parts the categorical splits, with EFB on or off (EFB_BINARY_NOTE)
+# cross_entropy on the 0/1 label, and the masked case runs once more with
+# binary: both sigmoids are XLA's algorithm in correctly rounded steps
+# (objective/__init__.py::_sigmoid_xla), the same bits on card and CPU
 EFB_PARITY_OBJECTIVE = {"objective": "cross_entropy"}
-EFB_BINARY_NOTE = "binary's float32 sigmoid, ROADMAP Queue 3"
 EFB_PARITY_CASES = {
     "masked": (0.0, False, {}),
     "goss": (0.0, False, {"data_sample_strategy": "goss",
@@ -321,6 +337,43 @@ RANK_PARITY_SETTINGS = {
                          "use_quantized_grad": False},
     "rank_xendcg": {"objective": "rank_xendcg"},
     "lambdarank_position": {"objective": "lambdarank"},
+}
+
+# the Bosch phase: benchmarks/suite.py::bench_bosch (:58-105) at its own
+# size and settings: 300,000 x 200 normal features (seed 1), the label
+# 2 x0 + |x1| + 0.3 x2^2 + N(0, 0.5), feature 0 monotone increasing,
+# regression, DART (max_drop 4, the other DART settings at their
+# defaults) under GOSS with the compacted buffer, 127 leaves, 255 bins.
+# 300k rows are below capabilities.AUTO_QUANT_MIN_ROWS, so kernel A runs
+# in f32 mode at F = 200 and B compacts 200 bin rows. Warm BOSCH_WARM
+# rounds (GOSS from iteration 1 / 0.1 = 10), time BOSCH_ROUNDS, trace
+# TRACE_ROUNDS, record one more
+N_BOSCH, BOSCH_F, BOSCH_WARM, BOSCH_ROUNDS = 300_000, 200, 14, 15
+BOSCH_PARAMS = {"objective": "regression", "boosting": "dart",
+                "data_sample_strategy": "goss", "num_leaves": 127,
+                "max_bin": 255, "monotone_constraints": [1] + [0] * 199,
+                "max_drop": 4, "learning_rate": 0.1, "verbosity": -1,
+                "device_type": "cuda"}
+# the response to feature 0 over this grid at BOSCH_GRID_ROWS random rows
+# must not decrease by more than BOSCH_MONO_TOL
+BOSCH_GRID, BOSCH_GRID_ROWS, BOSCH_MONO_TOL = 201, 5, 1e-6
+# Bosch card against CPU: N_PARITY Bosch-shaped rows on PARITY_PARAMS at
+# learning rate 0.3 (GOSS from iteration 3), drop rate 0.5 and skip_drop
+# 0.2 so that trees drop in BOSCH_PARITY_ROUNDS rounds
+BOSCH_PARITY_ROUNDS = 6
+BOSCH_PARITY_PARAMS = dict(PARITY_PARAMS, objective="regression",
+                           boosting="dart", learning_rate=0.3,
+                           drop_rate=0.5, skip_drop=0.2, max_drop=4,
+                           monotone_constraints=[1] + [0] * 199)
+BOSCH_PARITY_CASES = {
+    "dart_goss_monotone": {"data_sample_strategy": "goss"},
+    "dart_masked": {},
+    "dart_partition": {"tpu_hist_partition": "true"},
+    "intermediate_batch8": {"monotone_constraints_method": "intermediate",
+                            "tpu_leaf_batch": 8},
+    "monotone_penalty_1": {"monotone_penalty": 1.0},
+    "xgboost_dart_mode": {"xgboost_dart_mode": True},
+    "binary_dart": {"objective": "binary"},
 }
 
 
@@ -971,6 +1024,25 @@ def same_bits(a, b):
     return a.shape == b.shape and torch.equal(a, b)
 
 
+def compaction_yardsticks(tc, bins, vals, keep, out_cols, k):
+    """Kernel B's yardsticks on one compaction of ``k`` kept columns: the
+    largest |difference| of one launch from the plain version, the plain
+    version's and a mask select's ms, and the bound (the mask, the kept
+    columns read once, the whole output, its tail zeros, written once)."""
+    F, n = bins.shape
+    C = vals.shape[0]
+    gb, gv = tc.compact_by_mask(bins, vals, keep, out_cols)
+    pb, pv = tc.compact_by_mask_plain(bins, vals, keep, out_cols)
+    err = max(float((gb.int() - pb.int()).abs().max()),
+              float((gv - pv).abs().max()))
+    plain_ms = time_ms(lambda: tc.compact_by_mask_plain(
+        bins, vals, keep, out_cols), reps=5)
+    lib_ms = time_ms(lambda: (bins[:, keep], vals[:, keep]), reps=5)
+    b_ms, b_by = bound(n + (F + 4 * C) * (k + out_cols), 0)
+    return dict(plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err)
+
+
 def compaction_phase(dev, tc, parent):
     """Kernel B (``compact_by_mask``) at the GOSS flagship's shape (its
     padded rows, keep fraction 0.3 into the 311,296-column buffer) and at
@@ -1012,19 +1084,12 @@ def compaction_phase(dev, tc, parent):
             fns["parent_step"] = lambda: parent_compact_step(
                 parent["compact"], tc, bins, vals, keep, out_cols, R)
         ms, call_ms, turns = in_turns(fns)
-        plain_ms = time_ms(lambda: tc.compact_by_mask_plain(
-            bins, vals, keep, out_cols), reps=5)
-        lib_ms = time_ms(lambda: (bins[:, keep], vals[:, keep]), reps=5)
-        # the mask, the kept columns read once, the whole output (its tail
-        # is zeros) written once
-        nbytes = n + (F + 4 * C) * k + (F + 4 * C) * out_cols
-        b_ms, b_by = bound(nbytes, 0)
+        y = compaction_yardsticks(tc, bins, vals, keep, out_cols, k)
         out[label] = dict(n=n, kept=k, out_cols=out_cols, ms=ms["kernel"],
                           earlier_ms=ms.get("parent_step"),
                           call_ms=call_ms["kernel"],
                           earlier_call_ms=call_ms.get("parent_step"),
-                          turns=turns, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
+                          turns=turns, **y)
         print(f"compaction {label} n={n} keep={k} out_cols={out_cols}: "
               f"device ms: compact_by_mask {ms['kernel']:.4f}"
               + (f", parent step (plan + zero-fills + kernel) "
@@ -1033,8 +1098,9 @@ def compaction_phase(dev, tc, parent):
                  if "parent_step" in ms else "")
               + f" (in turns {turns}); per call back to back: "
               + ", ".join(f"{x} {t:.4f}" for x, t in call_ms.items())
-              + f"; plain {plain_ms:.3f} ms, mask select {lib_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms; {REPEATS} launches bit-equal",
+              + f"; plain {y['plain_ms']:.3f} ms, mask select "
+              f"{y['library_ms']:.4f} ms, bound {y['bound_ms']:.4f} ms; "
+              f"{REPEATS} launches bit-equal",
               flush=True)
     return out
 
@@ -2474,9 +2540,8 @@ def efb_parity_run(lgt, th, tc, tp, smi):
     0.2 (lossy bundles) and CSR input. The same bundles, split lines
     identical (exact gradients: or every tree keeps the same rows in each
     leaf, as kernel A adds floats in another order than the plain
-    version), predictions within PARITY_PRED_TOL. Then the masked case
-    once more with the binary objective, reported and not held (see
-    EFB_PARITY_OBJECTIVE)."""
+    version), predictions within PARITY_PRED_TOL; the masked case also
+    with the binary objective."""
     import scipy.sparse as sp
     out = {}
     th.multi_leaf_histogram.launches = 0
@@ -2519,11 +2584,7 @@ def efb_parity_run(lgt, th, tc, tp, smi):
               f"{plan.n_phys} physical columns of {X.shape[1]}, split lines "
               f"{'identical' if equal else 'DIFFER'}, the same rows in "
               f"every leaf {same_rows}, predictions max |diff| / max(1, "
-              f"|CPU|) {diff:.3g}"
-              + (f" (reported, not held: {EFB_BINARY_NOTE})"
-                 if case == "binary_masked" else ""), flush=True)
-        if case == "binary_masked":
-            continue
+              f"|CPU|) {diff:.3g}", flush=True)
         if not (res["cuda"][2].bundles == plan.bundles
                 and (equal or (case == "exact" and same_rows))
                 and diff <= PARITY_PRED_TOL):
@@ -2897,6 +2958,304 @@ def ranking_phase(lgt, th, tc, tp, serial, gbdt, smi):
     return res
 
 
+# ---- phase 12: the Bosch configuration ------------------------------------
+def bosch_data(n, seed=1):
+    """benchmarks/suite.py::bench_bosch's data: (X ``[n, 200]``, y)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, BOSCH_F))
+    y = (X[:, 0] * 2.0 + np.abs(X[:, 1]) + 0.3 * X[:, 2] ** 2
+         + rng.normal(scale=0.5, size=n))
+    return X, y
+
+
+class DropTimer:
+    """Takes the place of the name DART calls for the dropped trees'
+    traversal (``boosting.dart.forest_predict_binned``), passes every call
+    on, and records CUDA events around it: the device-timeline ms from the
+    call's first kernel to its last (gaps while the host queues the
+    traversal's small kernels included)."""
+
+    def __init__(self, dart):
+        self.dart, self.prev = dart, dart.forest_predict_binned
+        self.events = []
+        dart.forest_predict_binned = self
+
+    def __call__(self, *args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        out = self.prev(*args, **kw)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def take_ms(self):
+        torch.cuda.synchronize()
+        ms = sum(s.elapsed_time(e) for s, e in self.events)
+        self.events = []
+        return ms
+
+    def close(self):
+        self.dart.forest_predict_binned = self.prev
+
+
+def time_compactions(tc, calls):
+    """Device ms of kernel B on recorded compactions, beside the plain
+    version, a mask select and the bound (the mask, the kept columns read
+    once, the whole output written once)."""
+    out = []
+    for bins, vals, keep, out_cols in calls:
+        F, n = bins.shape
+        C = vals.shape[0]
+        k = int(keep.sum())
+        ms = device_ms(lambda: tc.compact_by_mask(bins, vals, keep,
+                                                  out_cols))
+        y = compaction_yardsticks(tc, bins, vals, keep, out_cols, k)
+        out.append(dict(F=F, C=C, n=n, kept=k, out_cols=out_cols, ms=ms,
+                        **y))
+        print(f"bosch: compaction F={F} C={C} n={n} keep={k} "
+              f"out_cols={out_cols}: {ms:.4f} ms device, plain "
+              f"{y['plain_ms']:.3f} ms, mask select {y['library_ms']:.4f} "
+              f"ms, bound {y['bound_ms']:.4f} ms ({y['bound_by']}); max "
+              f"|diff| {y['max_abs_err']}", flush=True)
+    return out
+
+
+def hold_f32_calls(th, calls, label):
+    """Kernel A in f32 mode on the recorded calls' own values against the
+    plain version, within ``f32_tolerance``; returns the max |diff|."""
+    err = 0.0
+    for i, call in enumerate(calls):
+        kw = dict(num_bins=call["kw"]["num_bins"])
+        got = th.multi_leaf_histogram(*call["args"], **kw)
+        ref = th.multi_leaf_histogram_plain(*call["args"], **kw)
+        torch.cuda.synchronize()
+        err = max(err, check_f32(f"{label} call {i} f32", got, ref,
+                                 call["args"][1], False))
+    return err
+
+
+def bosch_response(bst, X):
+    """The largest fall of the prediction along feature 0 over a
+    BOSCH_GRID-point grid at BOSCH_GRID_ROWS random rows, and the
+    responses' spread."""
+    rows = X[np.random.default_rng(3).choice(len(X), BOSCH_GRID_ROWS,
+                                             replace=False)]
+    grid = np.linspace(-4.0, 4.0, BOSCH_GRID)
+    Z = np.repeat(rows, BOSCH_GRID, axis=0)
+    Z[:, 0] = np.tile(grid, BOSCH_GRID_ROWS)
+    resp = bst.predict(Z).reshape(BOSCH_GRID_ROWS, BOSCH_GRID)
+    return (float(max(0.0, -np.diff(resp, axis=1).min())),
+            float(np.ptp(resp)))
+
+
+def bosch_run(lgt, th, tc, tp, serial, gbdt, dart, smi):
+    """The suite's Bosch configuration on the card: BOSCH_WARM rounds
+    (one full-row iteration's kernel-A calls recorded), BOSCH_ROUNDS
+    timed from launch counts of 0, TRACE_ROUNDS traced, then one GOSS
+    iteration's kernel-A calls and compaction recorded and held against
+    the plain versions (f32 mode within the tolerance on the recorded
+    values; int mode and exact-sum f32 mode bit for bit; B bit for bit)
+    and timed; train RMSE beside the label's std, as the suite reports
+    them; the monotone response check."""
+    t0 = time.time()
+    X, y = bosch_data(N_BOSCH)
+    ds = lgt.Dataset(X, label=y).construct()
+    setup_s = time.time() - t0
+    bst = lgt.Booster(params=dict(BOSCH_PARAMS), train_set=ds)
+    eng = bst.engine
+    if not (isinstance(eng, dart.DART) and eng.has_monotone
+            and eng.num_features == BOSCH_F and not eng.has_bundles
+            and not eng.grow_cfg.int_hist and eng.use_goss_compact
+            and eng.grow_cfg.leaf_batch == 32):
+        raise AssertionError(f"bosch engine: {eng.grow_cfg}")
+    print(f"bosch: {N_BOSCH} x {BOSCH_F} (benchmarks/suite.py::bench_bosch"
+          f"), DART + GOSS + monotone (+1 on feature 0): data and binning "
+          f"{setup_s:.1f} s; GOSS buffer {eng.goss_n_sub} of "
+          f"{eng.data.n_pad} padded rows", flush=True)
+    rec = HistRecorder(serial, th)
+    modes = ModeCounter(serial, th)
+    crec = CallRecorder(gbdt, "compact_by_mask")
+    timer = DropTimer(dart)
+    try:
+        for i in range(BOSCH_WARM):
+            rec.tag = "bosch_full_rows" if i == 1 else None
+            bst.update()
+        rec.tag = None
+        timer.take_ms()
+        th.multi_leaf_histogram.launches = 0
+        tc.compact_by_mask.launches = 0
+        tp.partition_move.launches = 0
+        modes.calls = {"int": 0, "f32": 0}
+        d0 = (eng.drop_iterations, eng.dropped_trees)
+        secs = []
+        for _ in range(BOSCH_ROUNDS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            bst.update()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        drop_ms = timer.take_ms() / BOSCH_ROUNDS
+        launches = {"histogram": th.multi_leaf_histogram.launches,
+                    "compact": tc.compact_by_mask.launches,
+                    "partition": tp.partition_move.launches}
+        calls_by_mode = dict(modes.calls)
+        drops = (eng.drop_iterations - d0[0], eng.dropped_trees - d0[1])
+        tr = trace_rounds(bst, TRACE_ROUNDS)
+        trace_drop_ms = timer.take_ms() / TRACE_ROUNDS
+        rec.tag, crec.on = "bosch_goss", True
+        bst.update()
+        rec.tag, crec.on = None, False
+    finally:
+        timer.close()
+        crec.close()
+        modes.close()
+        rec.close()
+    r = dict(rounds=BOSCH_ROUNDS, iter_s=[round(x, 4) for x in secs],
+             it_per_s=BOSCH_ROUNDS / sum(secs), launches=launches,
+             kernel_a_calls_by_mode=calls_by_mode,
+             drop_iterations=drops[0], dropped_trees=drops[1],
+             drop_predict_ms_per_iter=drop_ms,
+             drop_predict_ms_per_iter_traced=trace_drop_ms, trace=tr,
+             setup_s=setup_s, goss_n_sub=eng.goss_n_sub,
+             n_pad=eng.data.n_pad)
+    t = time.time()
+    pred = bst.predict(X)
+    r["train_rmse"] = float(np.sqrt(np.mean((pred - y) ** 2)))
+    r["label_std"] = float(y.std())
+    r["predict_s"] = time.time() - t
+    r["monotone_max_fall"], r["monotone_spread"] = bosch_response(bst, X)
+    print(f"bosch: {BOSCH_ROUNDS} GOSS rounds, {r['it_per_s']:.3f} it/s on "
+          f"{smi}; seconds per iteration {r['iter_s']}; train RMSE "
+          f"{r['train_rmse']:.4f} (label std {r['label_std']:.4f}; predict "
+          f"{r['predict_s']:.1f} s); {drops[0]} of {BOSCH_ROUNDS} "
+          f"iterations dropped trees, {drops[1]} trees in all; dropped-tree "
+          f"predict {drop_ms:.3f} ms an iteration (CUDA events; traced "
+          f"iterations {trace_drop_ms:.3f}); launches {launches}, kernel A "
+          f"calls by mode {calls_by_mode}; response to feature 0 over "
+          f"{BOSCH_GRID} points at {BOSCH_GRID_ROWS} rows: largest fall "
+          f"{r['monotone_max_fall']:.3g}, spread "
+          f"{r['monotone_spread']:.4f}", flush=True)
+    print(f"bosch: traced ({TRACE_ROUNDS} more iterations): "
+          f"{tr['wall_ms_per_iter']:.2f} ms wall, device busy "
+          f"{tr['busy_ms_per_iter']} ms, idle share {tr['idle_share']}, "
+          f"kernel A {tr['kernel_a_ms_per_iter']} ms an iteration, move "
+          f"and compaction kernels {tr['step_ms_per_iter']} ms an "
+          f"iteration, device-to-host copies per iteration "
+          f"{tr['dtoh_per_iter']}; top device time (ms per iteration): "
+          f"{tr['top_kernels']}", flush=True)
+    if not (launches["histogram"] > 0 and launches["compact"] > 0
+            and launches["partition"] == 0 and calls_by_mode["int"] == 0
+            and calls_by_mode["f32"] == launches["histogram"]
+            and math.isfinite(r["it_per_s"])
+            and r["train_rmse"] < r["label_std"]):
+        raise AssertionError(f"bosch run: {r}")
+    if r["monotone_max_fall"] > BOSCH_MONO_TOL or r["monotone_spread"] <= 0:
+        raise AssertionError(f"bosch: the response to feature 0 falls by "
+                             f"{r['monotone_max_fall']}")
+    # the recorded calls: f32 mode on their own values within the
+    # tolerance, then held bit for bit and timed beside the plain
+    # version, index_add_ and the bound
+    f32_err = hold_f32_calls(th, rec.calls, "bosch")
+    replay = replay_phase(torch.device("cuda"), th, rec.calls, {})
+    shapes = sorted({(*c["args"][0].shape, c["args"][1].shape[0],
+                      c["args"][3].shape[0]) for c in rec.calls})
+    held = dict(histogram_calls=len(rec.calls), histogram_shapes=shapes,
+                f32_max_abs_err=f32_err,
+                replay=[{k: x[k] for k in REPLAY_KEYS} for x in replay],
+                **hold_moves(tc, tp, crec.calls, [], "bosch"))
+    held["compaction_times"] = time_compactions(tc, crec.calls)
+    by_tree = {}
+    for x in replay:
+        by_tree.setdefault(x["tree"], []).append(x)
+    mean = {t: {m: sum(x[f"{m}_kernel_ms"] for x in xs) / len(xs)
+                for m in ("int", "f32")} for t, xs in by_tree.items()}
+    print(f"bosch: kernels at F = {BOSCH_F} held against the plain "
+          f"versions: {len(rec.calls)} kernel-A calls (one full-row and "
+          f"one GOSS iteration; shapes F, n, C, lanes: {shapes}; f32 mode "
+          f"on the recorded values within the tolerance, max |diff| "
+          f"{f32_err:.3g}; int mode and exact-sum f32 mode bit-equal; mean "
+          f"ms a call by tree {mean}), compactions {held['compactions']} "
+          f"bit-equal", flush=True)
+    if not (len(by_tree) == 2 and all(f == BOSCH_F for f, *_ in shapes)
+            and len(crec.calls) == 1
+            and crec.calls[0][0].shape[0] == BOSCH_F):
+        raise AssertionError(f"bosch recorded calls: {held}")
+    return dict(r, held_against_plain=held)
+
+
+def bosch_parity_data(seed=5, binary=False):
+    """N_PARITY + N_PARITY_HOLDOUT Bosch-shaped rows; with ``binary`` the
+    label is whether the regression label is above its median."""
+    X, y = bosch_data(N_PARITY + N_PARITY_HOLDOUT, seed=seed)
+    if binary:
+        y = (y > np.median(y)).astype(np.float64)
+    return X, y
+
+
+def bosch_parity_run(lgt, th, tc, tp, dart, smi):
+    """Every BOSCH_PARITY_CASES run on the card and on the CPU from the
+    same draws: the same iterations drop trees, split lines identical,
+    holdout predictions within PARITY_PRED_TOL."""
+    out = {}
+    th.multi_leaf_histogram.launches = 0
+    tc.compact_by_mask.launches = 0
+    tp.partition_move.launches = 0
+    for case, extra in BOSCH_PARITY_CASES.items():
+        X, y = bosch_parity_data(binary=extra.get("objective") == "binary")
+        res, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.time()
+            bst = lgt.train(dict(BOSCH_PARITY_PARAMS, device_type=dev,
+                                 **extra),
+                            lgt.Dataset(X[:N_PARITY], label=y[:N_PARITY]),
+                            num_boost_round=BOSCH_PARITY_ROUNDS,
+                            noise=SameDraws(dev))
+            eng = bst.engine
+            if not (isinstance(eng, dart.DART) and eng.has_monotone
+                    and eng.hist_partition == ("tpu_hist_partition"
+                                               in extra)):
+                raise AssertionError(f"bosch card against CPU {case}: "
+                                     "engine")
+            res[dev] = (split_lines(bst.model_to_string()),
+                        bst.predict(X[N_PARITY:]),
+                        (eng.drop_iterations, eng.dropped_trees))
+            secs[dev] = round(time.time() - t0, 1)
+        equal = res["cuda"][0] == res["cpu"][0]
+        diff = float(np.max(np.abs(res["cuda"][1] - res["cpu"][1])
+                            / np.maximum(1.0, np.abs(res["cpu"][1]))))
+        out[case] = dict(split_lines_equal=equal, max_rel_diff=diff,
+                         drops=res["cpu"][2])
+        print(f"bosch: card against CPU, {case}: split lines "
+              f"{'identical' if equal else 'DIFFER'}, predictions max "
+              f"|diff| / max(1, |CPU|) {diff:.3g}, (iterations that "
+              f"dropped, trees dropped) card {res['cuda'][2]} CPU "
+              f"{res['cpu'][2]}; seconds {secs}", flush=True)
+        if not (equal and diff <= PARITY_PRED_TOL
+                and res["cuda"][2] == res["cpu"][2]
+                and res["cpu"][2][0] > 0):
+            raise AssertionError(f"bosch card against CPU, {case}: {out}")
+    out["launches"] = {"histogram": th.multi_leaf_histogram.launches,
+                       "compact": tc.compact_by_mask.launches,
+                       "partition": tp.partition_move.launches}
+    if not all(v > 0 for v in out["launches"].values()):
+        raise AssertionError(f"bosch card against CPU: launches "
+                             f"{out['launches']}")
+    return out
+
+
+def bosch_phase(lgt, th, tc, tp, serial, gbdt, smi):
+    """The suite's Bosch configuration (DART + GOSS + monotone) on the
+    card, and the seven 20k-row runs on the card against the CPU."""
+    from lightgbm_tpu_torch.boosting import dart
+    t0 = time.time()
+    res = {"bosch": bosch_run(lgt, th, tc, tp, serial, gbdt, dart, smi),
+           "card_vs_cpu": bosch_parity_run(lgt, th, tc, tp, dart, smi)}
+    res["seconds"] = time.time() - t0
+    print(f"bosch phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main(argv):
     json_out = argv[argv.index("--json-out") + 1] if "--json-out" in argv \
         else None
@@ -2976,6 +3335,9 @@ def main(argv):
     if "--only-ranking" in argv:
         ranking_phase(lgt, th, tc, tp, serial, gbdt, smi)
         return 0
+    if "--only-bosch" in argv:
+        bosch_phase(lgt, th, tc, tp, serial, gbdt, smi)
+        return 0
     n_full_pad = pad_rows(N_FULL, Config({}).tpu_rows_per_block)
     hist = histogram_phase(dev, th, tp, n_full_pad)
     comp = compaction_phase(dev, tc, parent)
@@ -2995,6 +3357,7 @@ def main(argv):
     efb = efb_phase(lgt, th, tc, tp, serial, gbdt, smi, criteo)
     del criteo
     rank = ranking_phase(lgt, th, tc, tp, serial, gbdt, smi)
+    bosch = bosch_phase(lgt, th, tc, tp, serial, gbdt, smi)
 
     h, c, p = hist["masked"], comp["goss"], part["half"]
     fl = {m: r["launches"] for m, r in full.items()}
@@ -3020,7 +3383,9 @@ def main(argv):
                 **{f"mslr_{p}": rank["mslr"][p]["launches"][key]
                    for p in list(MSLR_PATHS) + list(MSLR_SIDE)},
                 "mslr_lengths": rank["lengths"]["launches"].get(key, 0),
-                "ranking_card_vs_cpu": rank["card_vs_cpu"]["launches"][key]}
+                "ranking_card_vs_cpu": rank["card_vs_cpu"]["launches"][key],
+                "bosch": bosch["bosch"]["launches"][key],
+                "bosch_card_vs_cpu": bosch["card_vs_cpu"]["launches"][key]}
 
     def probe_entry(name, tag, source_line):
         pr = probes[name]
@@ -3067,7 +3432,10 @@ def main(argv):
              shapes={k: v for k, v in hist.items()},
              replay=[{k: r[k] for k in REPLAY_KEYS} for r in replay],
              replay_mslr=rank["mslr"]["held_against_plain"]["replay"],
-             held_efb=efb["criteo"]["held_against_plain"]),
+             held_efb=efb["criteo"]["held_against_plain"],
+             held_bosch={k: v for k, v in bosch["bosch"][
+                 "held_against_plain"].items()
+                 if k != "compaction_times"}),
         dict(name="compact_by_mask", route="cuda",
              source="lightgbm_tpu_torch/csrc/compact.cu",
              core="lightgbm_tpu_torch/csrc/stable_partition.cuh",
@@ -3079,7 +3447,9 @@ def main(argv):
              plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
              bound_by=c["bound_by"], library_ms=c["library_ms"],
              max_abs_diff=c["max_abs_err"], kernel_ms=c["ms"],
-             shapes={k: v for k, v in comp.items()}),
+             shapes={k: v for k, v in comp.items()},
+             held_bosch=bosch["bosch"]["held_against_plain"][
+                 "compaction_times"]),
         dict(name="partition_move", route="cuda",
              source="lightgbm_tpu_torch/csrc/partition.cu",
              core="lightgbm_tpu_torch/csrc/stable_partition.cuh",
@@ -3099,7 +3469,7 @@ def main(argv):
     ], "train": dict({k: v for k, v in train.items()
                       if k not in ("trees_leaves",)}, full_row=full,
                      partition_sweep=sweep, objectives=objs,
-                     categorical=cat, efb=efb, ranking=rank)}
+                     categorical=cat, efb=efb, ranking=rank, bosch=bosch)}
     for v in (kernels_line["train"]["masked_it_per_s"],
               kernels_line["train"]["goss_it_per_s"]):
         if not math.isfinite(v):

@@ -2,8 +2,9 @@
 
 Reference: python-package/lightgbm/basic.py (UNVERIFIED — empty mount, see
 SURVEY.md banner). The port of ``lightgbm_tpu/basic.py``: the Booster
-wraps the in-process GBDT engine, or a host model loaded from LightGBM
-model text, with the same method names.
+wraps the in-process boosting engine (GBDT, or DART with
+``boosting="dart"``), or a host model loaded from LightGBM model text,
+with the same method names.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from .boosting import GBDT
+from .boosting import GBDT, create_boosting
 from .config import Config
 from .io.dataset import Dataset
 from .utils.log import LightGBMError
@@ -37,7 +38,8 @@ class Booster:
                         "bin_construct_sample_cnt", "use_missing",
                         "zero_as_missing", "data_random_seed"):
                 train_set.params.setdefault(key, getattr(self.config, key))
-            self._engine = GBDT(self.config, train_set, noise=noise)
+            self._engine = create_boosting(self.config, train_set,
+                                           noise=noise)
             self.train_set = train_set
         elif model_file is not None or model_str is not None:
             from .io.model_text import load_model_string
@@ -66,6 +68,11 @@ class Booster:
         """Run one boosting iteration; returns True if stopped early."""
         self.engine.train_one_iter()
         return False
+
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration's trees (GBDT::RollbackOneIter)."""
+        self.engine.rollback_one_iter()
+        return self
 
     def eval_train(self) -> List:
         return self.engine.eval_set(-1)

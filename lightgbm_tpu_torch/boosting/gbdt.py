@@ -17,7 +17,11 @@ physical matrix, valid sets and predict stay logical) and the
 host leaf renewal of L1, quantile and MAPE, and the ranking objectives
 (query-grouped gradients; rank_xendcg's per-iteration gammas;
 position-debiased lambdarank's per-position state, threaded from one
-iteration's gradients to the next). Scores and the binned
+iteration's gradients to the next), monotone constraints (basic and
+intermediate, with ``monotone_penalty``), and the pieces DART
+(``dart.py``) builds on: stacks of any subset of trees, a model version
+that any change to the stored trees bumps, the logical bins under EFB and
+``rollback_one_iter``. Scores and the binned
 matrices stay on the device across iterations; each iteration copies the
 finished trees' flat arrays to the host. ``gradients``, ``quantize`` and
 ``goss_masks`` are pure functions that take their uniform draws as
@@ -274,6 +278,17 @@ class GBDT:
         self.feat_has_nan = torch.as_tensor(has_nan, device=dev)
         self.has_categorical = bool(is_cat.any())
         self.feat_is_cat = torch.as_tensor(is_cat, device=dev)
+        # monotone directions by used feature; categorical features carry
+        # none (the JAX package's feat_mono)
+        mc = list(config.monotone_constraints or [])
+        mono = np.zeros(F, dtype=np.int8)
+        for i, f in enumerate(self.train_set.used_features):
+            if f < len(mc):
+                mono[i] = int(mc[f])
+        mono[is_cat] = 0
+        self.has_monotone = bool(np.any(mono != 0))
+        self.feat_mono = (torch.as_tensor(mono, device=dev)
+                          if self.has_monotone else None)
         self.num_features = F
         self.allowed = torch.ones(F, dtype=torch.bool, device=dev)
         self.bundle = None
@@ -323,7 +338,12 @@ class GBDT:
             cat_smooth=c.cat_smooth, cat_l2=c.cat_l2,
             max_cat_to_onehot=c.max_cat_to_onehot,
             min_data_per_group=c.min_data_per_group,
-            has_bundles=self.has_bundles)
+            has_bundles=self.has_bundles,
+            has_monotone=self.has_monotone,
+            monotone_intermediate=(
+                str(c.monotone_constraints_method).lower()
+                == "intermediate"),
+            monotone_penalty=c.monotone_penalty)
 
         # ---- GOSS (goss.hpp) ------------------------------------------
         # goss.hpp truncates the DOUBLE product rate * cnt; the counts
@@ -348,8 +368,12 @@ class GBDT:
             and frac < 1.0 and self.compact_rpb >= 256
             # the buffer (sampled rows + write slack) must shrink the scan
             and self.goss_n_sub < self.data.n_pad)
-        self._stack_cache: Optional[Tuple[Tuple[int, int, int], Dict,
-                                          int]] = None
+        # the last contiguous stack, keyed by (model version, start,
+        # count); the version changes with any change to the stored trees
+        self._models_version = 0
+        self._stack_cache: Optional[Tuple[Tuple[int, int, int], Tuple]] \
+            = None
+        self._logical_bins_cache: Optional[torch.Tensor] = None
 
         self._rng_feature = np.random.RandomState(c.feature_fraction_seed)
         self._rng_bagging = np.random.RandomState(c.bagging_seed)
@@ -536,7 +560,7 @@ class GBDT:
             out.append(grow_tree(d.bins_t, vals, self.feat_num_bin,
                                  self.feat_has_nan, allowed, self.grow_cfg,
                                  chan_scale=scale, is_cat=self.feat_is_cat,
-                                 bundle=self.bundle))
+                                 bundle=self.bundle, mono=self.feat_mono))
         return out
 
     def _step_goss_compact(self, allowed: torch.Tensor):
@@ -564,7 +588,7 @@ class GBDT:
                                  self.feat_has_nan, allowed, cfg,
                                  chan_scale=scale, compact_bins_t=bins_t_c,
                                  is_cat=self.feat_is_cat,
-                                 bundle=self.bundle))
+                                 bundle=self.bundle, mono=self.feat_mono))
         return out
 
     def goss_active(self) -> bool:
@@ -620,19 +644,65 @@ class GBDT:
                  for k, ((tree, _), t) in enumerate(zip(grown, trees))],
                 dim=1)
         self.models.extend(trees)
-        self._stack_cache = None
+        self._invalidate_forest_cache()
         self.iter_ += 1
 
+    def _invalidate_forest_cache(self) -> None:
+        """The stored trees changed (added, dropped or rescaled in
+        place): bump the model version, so no cached stack serves the
+        old leaves."""
+        self._models_version += 1
+        self._stack_cache = None
+
+    def rollback_one_iter(self) -> None:
+        """GBDT::RollbackOneIter: drop the last iteration's K trees and
+        rebuild the train and valid scores from the trees that stay."""
+        if self.iter_ == 0:
+            return
+        self.models = self.models[:-self.num_class]
+        self._invalidate_forest_cache()
+        self.iter_ -= 1
+        self._recompute_scores()
+
+    def _recompute_scores(self) -> None:
+        """Scores from the init scores and every stored tree, on the
+        logical bins."""
+        self.score = self._init_score(self.data)
+        if self.models:
+            self.score = self.score + self._forest_raw(
+                self._logical_bins(), 0, len(self.models))
+        for vi, dd in enumerate(self.valid_data):
+            v = self._init_score(dd)
+            if self.models:
+                v = v + self._forest_raw(dd.bins, 0, len(self.models))
+            self.valid_scores[vi] = v
+
+    def _logical_bins(self) -> torch.Tensor:
+        """The row-major ``[n_pad, F]`` logical bins of the training set
+        that trees traverse. Under EFB the resident matrix is the bundled
+        one, so the logical one is placed on the device at first use and
+        kept (under EFB and DART both stay resident)."""
+        if not self.has_bundles:
+            return self.data.bins
+        if self._logical_bins_cache is None:
+            binned = self.train_set.binned
+            extra = self.data.n_pad - binned.shape[0]
+            if extra > 0:
+                binned = np.concatenate(
+                    [binned, np.zeros((extra, binned.shape[1]),
+                                      binned.dtype)])
+            self._logical_bins_cache = torch.from_numpy(
+                np.ascontiguousarray(binned)).to(self.device)
+        return self._logical_bins_cache
+
     # ------------------------------------------------------------------
-    def _stacked_forest(self, start: int, count: int
-                        ) -> Tuple[Dict[str, torch.Tensor], int]:
-        """Trees ``[start, start + count)`` as padded device arrays (with
-        each tree's class, ``t % K``) + their depth; the last slice is
-        cached until the model list changes."""
-        key = (len(self.models), start, count)
-        if self._stack_cache is not None and self._stack_cache[0] == key:
-            return self._stack_cache[1], self._stack_cache[2]
-        trees = self.models[start:start + count]
+    def _stack_model_list(self, indices: List[int]
+                          ) -> Tuple[Dict[str, torch.Tensor], np.ndarray,
+                                     int]:
+        """Any subset of the stored trees (DART drops non-contiguous
+        ones) as padded device arrays, with each tree's class
+        (``index % K``, host ints) and the subset's depth."""
+        trees = [self.models[i] for i in indices]
         L = max(max(t.num_leaves for t in trees), 1)
         Ln = max(L - 1, 1)
         dev = self.device
@@ -668,18 +738,31 @@ class GBDT:
                 lambda t: (t.is_categorical if t.is_categorical is not None
                            else np.zeros(t.num_nodes, bool)), Ln, bool)
             stacked["cat_bitset"] = torch.from_numpy(bs).to(dev)
+        class_index = np.asarray(indices, np.int64) % self.num_class
         depth = max(int(t.leaf_depths().max()) for t in trees)
-        self._stack_cache = (key, stacked, depth)
-        return stacked, depth
+        return stacked, class_index, depth
+
+    def _stacked_forest(self, start: int, count: int
+                        ) -> Tuple[Dict[str, torch.Tensor], np.ndarray,
+                                   int]:
+        """Trees ``[start, start + count)`` stacked; the last such slice
+        is cached until the stored trees change."""
+        key = (self._models_version, start, count)
+        if self._stack_cache is not None and self._stack_cache[0] == key:
+            return self._stack_cache[1]
+        hit = self._stack_model_list(list(range(start, start + count)))
+        self._stack_cache = (key, hit)
+        return hit
 
     def _forest_raw(self, bins: torch.Tensor, start: int, count: int
                     ) -> torch.Tensor:
         """Raw scores ``[n, K]`` of trees ``[start, start + count)`` on
         binned rows, summed per class in tree order."""
-        stacked, depth = self._stacked_forest(start, count)
+        stacked, class_index, depth = self._stacked_forest(start, count)
         raw, _ = forest_predict_binned(stacked, bins, self.feat_num_bin,
                                        self.feat_has_nan, depth,
-                                       self.num_class, start)
+                                       self.num_class,
+                                       class_index=class_index)
         return raw
 
     def eval_set(self, which: int) -> List[Tuple[str, str, float, bool]]:

@@ -1,22 +1,24 @@
 """The port's capability table: which features this package trains.
 
 ``lightgbm_tpu/capabilities.py`` gates features per boosting engine; this
-package has one engine so far -- gradient boosting with the serial learner
-and pool-mode histograms for every built-in objective (K trees an
-iteration for multiclass; lambdarank, with truncation, norm and position
-debiasing, and rank_xendcg on query groups from ``Dataset(group=...)``),
-trained on full rows (with bagging, per-tree feature_fraction and the
-leaf-ordered row partition) or under GOSS (with the compacted histogram
-buffer), on exact or quantized gradients, with categorical features
-(given to ``Dataset(categorical_feature=...)``; the
-``categorical_feature`` parameter is ignored, as the JAX package ignores
-it outside streaming), with Exclusive Feature Bundling as the JAX package
-does it (``enable_bundle``, on by default, and ``max_conflict_rate``, lossy
-above 0 in both packages alike), on dense or scipy sparse input, every
-metric (ndcg@k and map@k included) and early stopping. Every other
-feature of the JAX package is FATAL here with a message that names it, so
-an unported parameter fails loudly instead of silently training something
-else.
+package has two so far -- gradient boosting and DART (``boosting="dart"``,
+with ``drop_rate``, ``max_drop``, ``skip_drop``, ``uniform_drop`` and
+``xgboost_dart_mode``) -- with the serial learner and pool-mode histograms
+for every built-in objective (K trees an iteration for multiclass;
+lambdarank, with truncation, norm and position debiasing, and rank_xendcg
+on query groups from ``Dataset(group=...)``), trained on full rows (with
+bagging, per-tree feature_fraction and the leaf-ordered row partition) or
+under GOSS (with the compacted histogram buffer), on exact or quantized
+gradients, with categorical features (given to
+``Dataset(categorical_feature=...)``; the ``categorical_feature`` parameter
+is ignored, as the JAX package ignores it outside streaming), with
+Exclusive Feature Bundling as the JAX package does it (``enable_bundle``,
+on by default, and ``max_conflict_rate``, lossy above 0 in both packages
+alike), with monotone constraints by the basic and intermediate methods
+(and ``monotone_penalty``), on dense or scipy sparse input, every metric
+(ndcg@k and map@k included) and early stopping. Every other feature of the
+JAX package is FATAL here with a message that names it, so an unported
+parameter fails loudly instead of silently training something else.
 """
 from __future__ import annotations
 
@@ -85,8 +87,8 @@ UNPORTED: Dict[str, Capability] = {
         lambda c: str(c.objective) in UNPORTED_OBJECTIVES,
         {"objective": "custom"}),
     "boosting": Capability(
-        "boosting other than gbdt (dart, rf)",
-        lambda c: c.boosting != "gbdt", {"boosting": "dart"}),
+        "boosting=rf (random forest)",
+        lambda c: c.boosting == "rf", {"boosting": "rf"}),
     "sample_strategy": Capability(
         "data_sample_strategy other than bagging/goss",
         lambda c: str(c.data_sample_strategy) not in ("bagging", "goss"),
@@ -105,10 +107,13 @@ UNPORTED: Dict[str, Capability] = {
         {"max_bin": 1023}),
     "linear_tree": Capability(
         "linear_tree", lambda c: bool(c.linear_tree), {"linear_tree": True}),
-    "monotone_constraints": Capability(
-        "monotone constraints",
-        lambda c: any(int(m) != 0 for m in (c.monotone_constraints or [])),
-        {"monotone_constraints": [1, 0, 0, 0]}),
+    "monotone_advanced": Capability(
+        "monotone_constraints_method=advanced",
+        lambda c: (any(int(m) != 0 for m in (c.monotone_constraints or []))
+                   and str(c.monotone_constraints_method).lower()
+                   == "advanced"),
+        {"monotone_constraints": [1, 0, 0, 0],
+         "monotone_constraints_method": "advanced"}),
     "interaction_constraints": Capability(
         "interaction constraints",
         lambda c: bool(c.interaction_constraints),

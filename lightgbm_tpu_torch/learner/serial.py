@@ -30,7 +30,16 @@ of ``GrowConfig`` the main path sets:
   (``io/bundling.py``). The pool, the sibling subtraction and the kernel
   stay physical; the split search sees each leaf's histogram expanded to
   the logical features (``expand_hist``), and every row pass reads the
-  winning feature's physical column and inverts the bundle relabeling.
+  winning feature's physical column and inverts the bundle relabeling;
+- monotone constraints (``has_monotone``): each leaf carries an output
+  range ``[lower, upper]`` (±inf at the root); a split's child outputs
+  are clipped to the split leaf's range and the split search sees the
+  children's ranges. The basic method gives both children the midpoint
+  of their outputs as a shared bound; the intermediate method recomputes
+  every range each round from the current outputs of the opposite
+  subtree of each constrained ancestor (``[L, L+1]`` membership
+  matrices), with a shared midpoint where one round splits leaves on
+  both sides of a constrained node.
 
 The JAX package's ``lax.while_loop`` becomes a host-driven loop of device
 ops with one host sync per round (the top-k leaf election), plus, under
@@ -38,8 +47,8 @@ the partition, one read of the largest elected span (the budget that the
 JAX package picks on the device with ``lax.switch``). Tree arrays carry
 one trailing TRASH slot (node L-1, leaf L) so inactive batch lanes write
 harmlessly, exactly as in the JAX package, so both produce the same
-arrays. Constraints, forced splits, rebuild mode and the distributed
-modes are not ported yet.
+arrays. Interaction constraints, the advanced monotone method, forced
+splits, rebuild mode and the distributed modes are not ported yet.
 """
 from __future__ import annotations
 
@@ -53,7 +62,7 @@ from ..io.bundling import build_expand_maps
 from ..ops.histogram import multi_leaf_histogram
 from ..ops.partition import partition_move, slice_spans, span_budgets, \
     update_tables
-from ..ops.split import NEG_INF, SplitConfig, calc_leaf_output, \
+from ..ops.split import NEG_INF, SplitConfig, calc_leaf_output, clip, \
     find_best_split
 
 
@@ -92,6 +101,12 @@ class GrowConfig:
     # EFB: the bins are the bundled physical matrix (grow_tree's `bundle`
     # argument); the split search expands histograms to logical features
     has_bundles: bool = False
+    # monotone constraints (grow_tree's `mono` argument): "basic" bounds,
+    # or the intermediate method's per-round recomputation; and the
+    # monotone_penalty gain factor by depth
+    has_monotone: bool = False
+    monotone_intermediate: bool = False
+    monotone_penalty: float = 0.0
 
     @property
     def cat_words(self) -> int:
@@ -110,7 +125,9 @@ class GrowConfig:
             max_cat_threshold=self.max_cat_threshold,
             cat_smooth=self.cat_smooth, cat_l2=self.cat_l2,
             max_cat_to_onehot=self.max_cat_to_onehot,
-            min_data_per_group=self.min_data_per_group)
+            min_data_per_group=self.min_data_per_group,
+            has_monotone=self.has_monotone,
+            monotone_penalty=self.monotone_penalty)
 
 
 class BundleMaps(NamedTuple):
@@ -208,6 +225,56 @@ def expand_hist(hists: torch.Tensor, totals: torch.Tensor,
     return g + bundle.at_default[None, :, :, None] * resid[:, :, None, :]
 
 
+def _intermediate_bounds(mono_left: torch.Tensor, mono_right: torch.Tensor,
+                         mono: torch.Tensor, split_feature: torch.Tensor,
+                         leaf_vcw: torch.Tensor, split_idx: int,
+                         num_leaves: int, tl_safe: torch.Tensor,
+                         valid: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The intermediate method's output range ``(lower, upper)`` ``[Kb]``
+    of each leaf split this round (IntermediateLeafConstraints, as the
+    JAX package computes it): every constrained node ``[L]`` bounds the
+    leaves of one subtree by the current outputs of the other (the min
+    and max over the ``[L, L+1]`` memberships ``mono_left`` /
+    ``mono_right``). Where this round splits leaves on both sides of a
+    constrained node, each side would read the other's outputs from
+    before the round and their children could cross, so that node binds
+    both sides at the midpoint of its two sides instead."""
+    dev = leaf_vcw.device
+    L = mono_left.shape[0]
+    big = float("inf")
+    node_ok = torch.arange(L, device=dev) < split_idx
+    node_m = torch.where(node_ok, mono[split_feature.to(torch.int64)],
+                         0)                                       # [L]
+    act = (torch.arange(L + 1, device=dev) < num_leaves)[None, :]
+    vals_c = leaf_vcw[:, 0][None, :]
+    in_r_act = mono_right & act
+    in_l_act = mono_left & act
+    rmin = torch.where(in_r_act, vals_c, big).amin(dim=1)         # [L]
+    lmin = torch.where(in_l_act, vals_c, big).amin(dim=1)
+    rmax = torch.where(in_r_act, vals_c, -big).amax(dim=1)
+    lmax = torch.where(in_l_act, vals_c, -big).amax(dim=1)
+    in_l = mono_left[:, tl_safe]                                  # [L, Kb]
+    in_r = mono_right[:, tl_safe]
+    both = ((in_l & valid[None, :]).any(dim=1)
+            & (in_r & valid[None, :]).any(dim=1))                 # [L]
+    c_inc = torch.where(both, 0.5 * (lmax + rmin), 0.0)
+    c_dec = torch.where(both, 0.5 * (lmin + rmax), 0.0)
+    nup_l = torch.where(both, c_inc, rmin)    # increasing, leaf on left
+    nlo_r = torch.where(both, c_inc, lmax)    # increasing, leaf on right
+    nup_r = torch.where(both, c_dec, lmin)    # decreasing, leaf on right
+    nlo_l = torch.where(both, c_dec, rmax)    # decreasing, leaf on left
+    pos = (node_m > 0)[:, None]
+    neg = (node_m < 0)[:, None]
+    phi = torch.where(pos & in_l, nup_l[:, None],
+                      torch.where(neg & in_r, nup_r[:, None], big)
+                      ).amin(dim=0)
+    plo = torch.where(pos & in_r, nlo_r[:, None],
+                      torch.where(neg & in_l, nlo_l[:, None], -big)
+                      ).amax(dim=0)
+    return plo, phi
+
+
 def _top_leaves(gains: torch.Tensor, k: int):
     """The k largest gains, ties to the lower leaf id (``lax.top_k``'s
     order), as host arrays."""
@@ -263,7 +330,8 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
               chan_scale: Optional[torch.Tensor] = None,
               compact_bins_t: Optional[torch.Tensor] = None,
               is_cat: Optional[torch.Tensor] = None,
-              bundle: Optional[BundleMaps] = None
+              bundle: Optional[BundleMaps] = None,
+              mono: Optional[torch.Tensor] = None
               ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Grow one tree.
 
@@ -286,6 +354,8 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
       bundle: the EFB maps of ``bins_t``'s columns; read only when
         ``cfg.has_bundles``. ``feat_num_bin``, ``feat_has_nan``,
         ``allowed_feature``, ``is_cat`` and the tree arrays stay logical.
+      mono: ``[F]`` int8 monotone directions in {-1, 0, +1} of the
+        logical features; read only when ``cfg.has_monotone``.
 
     Returns:
       (tree dict of fixed-size arrays + ``num_leaves`` + ``hist_rows``,
@@ -328,14 +398,22 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
     cat_idx = torch.nonzero(is_cat)[:, 0] if categorical else None
     if not cfg.has_bundles:
         bundle = None
+    monotone = cfg.has_monotone and mono is not None
+    inter = monotone and cfg.monotone_intermediate
+    basic = monotone and not inter
+    penalized = monotone and cfg.monotone_penalty > 0.0
 
-    def search_best(hists, sums):
+    def search_best(hists, sums, lowers=None, uppers=None, depths=None):
         if bundle is not None:
             hists = expand_hist(hists, sums, bundle)
+        extra = {}
+        if monotone:
+            extra = dict(mono=mono, out_lower=lowers, out_upper=uppers,
+                         depth=depths)
         return find_best_split(hists, sums, feat_num_bin, feat_has_nan,
                                allowed_feature, scfg,
                                is_cat=is_cat if categorical else None,
-                               cat_idx=cat_idx)
+                               cat_idx=cat_idx, **extra)
 
     # ---- root ----------------------------------------------------------
     leaf_id = torch.zeros(n_rows, dtype=i32, device=dev)
@@ -347,7 +425,16 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
     root_sums = vals.sum(dim=0)
     if chan_scale is not None:
         root_sums = root_sums * chan_scale
-    root_best = search_best(root_hist[None], root_sums[None])
+    root_bounds = {}
+    if monotone:
+        # the root's output range is unbounded
+        root_bounds = dict(
+            lowers=torch.full((1,), float("-inf"), device=dev),
+            uppers=torch.full((1,), float("inf"), device=dev))
+    root_best = search_best(
+        root_hist[None], root_sums[None],
+        depths=torch.zeros(1, dtype=i32, device=dev) if penalized else None,
+        **root_bounds)
 
     leaf_hist = torch.zeros((L + 1,) + tuple(root_hist.shape), dtype=f32,
                             device=dev)
@@ -385,6 +472,15 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
                                root_sums[1]])
     leaf_parent = torch.full((L + 1,), -1, dtype=i32, device=dev)
     leaf_is_left = torch.zeros(L + 1, dtype=torch.bool, device=dev)
+    if basic:
+        # each leaf's output range, unbounded at the root
+        leaf_bounds = torch.stack(
+            [torch.full((L + 1,), float("-inf"), device=dev),
+             torch.full((L + 1,), float("inf"), device=dev)], dim=1)
+    if inter:
+        # membership of each leaf in the left / right subtree of each node
+        mono_left = torch.zeros((L, L + 1), dtype=torch.bool, device=dev)
+        mono_right = torch.zeros((L, L + 1), dtype=torch.bool, device=dev)
 
     # ---- leaf-ordered row partition (cfg.partition) -------------------
     # the source's rows start as one span (the root); each round moves
@@ -515,9 +611,46 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
             rvals = torch.where(cat_sel, leaf_out(rsums, l2c), rvals)
         psums = leaf_sums[tl_safe]
 
+        # ---- constraint propagation (monotone_constraints.hpp) ---------
+        child_lower = child_upper = None
+        if monotone:
+            m_k = mono[feat_sel.to(torch.int64)].to(f32)
+            if basic:
+                plo, phi = leaf_bounds[tl_safe, 0], leaf_bounds[tl_safe, 1]
+            else:
+                plo, phi = _intermediate_bounds(
+                    mono_left, mono_right, mono, split_feature, leaf_vcw,
+                    split_idx, num_leaves, tl_safe, valid)
+            lvals = clip(lvals, plo, phi)
+            rvals = clip(rvals, plo, phi)
+            if basic:
+                # the midpoint of the realized outputs bounds every later
+                # split below either child
+                bound_l = bound_r = 0.5 * (lvals + rvals)
+            else:
+                # bounded by the sibling's realized output; later
+                # tightenings come from the per-round recomputation
+                bound_l, bound_r = rvals, lvals
+            lo_l = torch.where(m_k < 0, torch.maximum(plo, bound_l), plo)
+            hi_l = torch.where(m_k > 0, torch.minimum(phi, bound_l), phi)
+            lo_r = torch.where(m_k > 0, torch.maximum(plo, bound_r), plo)
+            hi_r = torch.where(m_k < 0, torch.minimum(phi, bound_r), phi)
+            child_lower = torch.cat([lo_l, lo_r])
+            child_upper = torch.cat([hi_l, hi_r])
+        if inter:
+            # children inherit the split leaf's memberships, then join
+            # the new node's two sides
+            mono_left[:, new_ids] = mono_left[:, tl_safe]
+            mono_right[:, new_ids] = mono_right[:, tl_safe]
+            mono_left[node_ids, tl_safe] = True
+            mono_right[node_ids, new_ids] = True
+
         # ---- best splits for all 2*Kb children -------------------------
         child_sums = torch.cat([lsums, rsums])
-        bests = search_best(torch.cat([left_hist, right_hist]), child_sums)
+        bests = search_best(torch.cat([left_hist, right_hist]), child_sums,
+                            child_lower, child_upper,
+                            torch.cat([depth2, depth2]) if penalized
+                            else None)
 
         # ---- tree wiring -----------------------------------------------
         left_child[node_ids] = (-top_leaf - 1).to(i32)
@@ -534,6 +667,9 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
 
         leaf_sums[ids2] = child_sums
         leaf_depth[ids2] = torch.cat([depth2, depth2])
+        if basic:
+            leaf_bounds[ids2] = torch.stack([child_lower, child_upper],
+                                            dim=1)
         best_gain[ids2] = bests["gain"]
         best_feature[ids2] = bests["feature"]
         best_threshold[ids2] = bests["threshold_bin"]

@@ -9,14 +9,16 @@ score→output transform used at predict time.
 The port of ``lightgbm_tpu/objective/__init__.py`` (the ranking objectives,
 lambdarank and rank_xendcg, are in ``ranking.py``): pure element-wise torch
 functions on the data's device, written
-operation for operation as the JAX package writes them. The transcendental
-functions of the objectives beyond binary (``exp``, ``sigmoid``,
-``softmax``, ``log1p``) run in float64 and round to float32: the card's
-and the CPU's float32 versions differ in the last bits, and so would
-their quantized gradients and trees; rounded from float64 they agree. XLA's
-float32 versions differ from both by ULPs, so gradients agree with the JAX
-package to within ULPs rather than bit for bit (binary keeps its float32
-``torch.sigmoid``). The multiclass objectives take a ``[n, K]`` score;
+operation for operation as the JAX package writes them. Where an
+objective's only transcendental is ``exp`` or ``sigmoid`` (binary,
+multiclassova, poisson, gamma, tweedie, cross_entropy) it runs XLA's own
+float32 algorithm (``_exp_xla``, ``_sigmoid_xla``): every step a correctly
+rounded IEEE operation, so the card, the CPU and the JAX package on its
+CPU backend give the same bits. The others (``softmax``, ``log1p``) run in
+float64 and round to float32: the card's and the CPU's float32 versions
+differ in the last bits, and so would their quantized gradients and
+trees; rounded from float64 they agree, and differ from XLA's by ULPs.
+The multiclass objectives take a ``[n, K]`` score;
 the others take ``[n]``. The boost-from-average init scores and the leaf
 renewal of L1, quantile and MAPE (``renew_tree_output``) are host numpy,
 copied from the JAX package.
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from ..utils import log
+from ..utils.fp import f32 as _f32, fma as _fma
 
 
 def _exp(x: torch.Tensor) -> torch.Tensor:
@@ -37,6 +40,48 @@ def _exp(x: torch.Tensor) -> torch.Tensor:
 
 def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(x.double()).to(x.dtype)
+
+
+# XLA's CPU exp (the Cephes polynomial, evaluated with fused multiply-adds)
+_LOG2E = 1.44269504088896341
+_EXP_C1, _EXP_C2 = -0.693359375, 2.12194440e-4
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+# XLA's CPU backend flushes float32 results below the smallest normal
+_MIN_NORMAL = 2.0 ** -126
+
+
+def _exp_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``exp`` with the bits of ``jnp.exp`` on XLA's CPU backend:
+    clamp to [-87.8, 88.8], ``m = floor(x log2(e) + 0.5)`` clamped to
+    [-127, 127], ``r = x - m ln 2`` in two parts, the Cephes polynomial
+    in Horner form, ``y * 2^m`` (one rounding, in float64, from the
+    exponent bits), and results below 2^-126 flushed to +0. Overflow
+    gives inf, NaN stays NaN."""
+    x = x.to(torch.float32)
+    xc = torch.clamp(x, -87.8, 88.8)
+    m = torch.clamp(torch.floor(_fma(xc, _f32(_LOG2E), _f32(0.5))),
+                    -127.0, 127.0)
+    r = _fma(m, _f32(_EXP_C1), xc)
+    r = _fma(m, _f32(_EXP_C2), r)
+    y = torch.full_like(r, _EXP_POLY[0])
+    for c in _EXP_POLY[1:]:
+        y = _fma(y, r, _f32(c))
+    y = _fma(y, r * r, r) + 1.0
+    e = torch.nan_to_num(m, nan=0.0).to(torch.int64)
+    pow2 = ((e + 1023) << 52).view(torch.float64)
+    out = (y.double() * pow2).float()
+    return torch.where(out < _MIN_NORMAL, 0.0, out)
+
+
+def _sigmoid_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``sigmoid`` with the bits of ``jax.nn.sigmoid`` on XLA's
+    CPU backend: ``1 / (1 + exp(-x))``, the divide a tensor by a tensor
+    (CUDA turns a Python number over a tensor into a product with the
+    reciprocal), results below 2^-126 flushed to +0."""
+    d = 1.0 + _exp_xla(-x)
+    out = torch.ones_like(d) / d
+    return torch.where(out < _MIN_NORMAL, 0.0, out)
 
 
 def _softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -208,7 +253,7 @@ class _LogMean(Objective):
         return float(np.log(max(self._wavg(label, weight), 1e-9)))
 
     def convert_output(self, score):
-        return _exp(score)
+        return _exp_xla(score)
 
     def init_mean_stats(self, label, weight):
         return self._mean_stats_of(np.asarray(label, np.float64), weight)
@@ -221,8 +266,8 @@ class Poisson(_LogMean):
     name = "poisson"
 
     def get_gradients(self, score, label, weight):
-        grad = _exp(score) - label
-        hess = _exp(score + self.config.poisson_max_delta_step)
+        grad = _exp_xla(score) - label
+        hess = _exp_xla(score + self.config.poisson_max_delta_step)
         return self._apply_weight(grad, hess, weight)
 
 
@@ -272,7 +317,7 @@ class Gamma(_LogMean):
     name = "gamma"
 
     def get_gradients(self, score, label, weight):
-        e = _exp(-score)
+        e = _exp_xla(-score)
         grad = 1.0 - label * e
         hess = label * e
         return self._apply_weight(grad, hess, weight)
@@ -283,10 +328,12 @@ class Tweedie(_LogMean):
 
     def get_gradients(self, score, label, weight):
         rho = self.config.tweedie_variance_power
-        e1 = _exp((1.0 - rho) * score)
-        e2 = _exp((2.0 - rho) * score)
-        grad = -label * e1 + e2
-        hess = -label * (1.0 - rho) * e1 + (2.0 - rho) * e2
+        e1 = _exp_xla((1.0 - rho) * score)
+        e2 = _exp_xla((2.0 - rho) * score)
+        # XLA contracts each product and sum into one fused multiply-add
+        # in the JAX package's jitted step
+        grad = _fma(-label, e1, e2)
+        hess = _fma(-label * (1.0 - rho), e1, (2.0 - rho) * e2)
         return self._apply_weight(grad, hess, weight)
 
 
@@ -330,7 +377,7 @@ class Binary(Objective):
     def get_gradients(self, score, label, weight):
         sig = self.sigmoid
         y = (label > 0).to(score.dtype)
-        p = torch.sigmoid(sig * score)
+        p = _sigmoid_xla(sig * score)
         label_w = torch.where(y > 0, self._pos_weight, self._neg_weight) \
             .to(score.dtype)
         grad = sig * (p - y) * label_w
@@ -338,7 +385,7 @@ class Binary(Objective):
         return self._apply_weight(grad, hess, weight)
 
     def convert_output(self, score):
-        return torch.sigmoid(self.sigmoid * score)
+        return _sigmoid_xla(self.sigmoid * score)
 
     def init_mean_stats(self, label, weight):
         return self._mean_stats_of((label > 0).astype(np.float64),
@@ -388,13 +435,13 @@ class MulticlassOVA(Objective):
     def get_gradients(self, score, label, weight):
         y = _one_hot(label, score.shape[1], score.dtype)
         sig = self.sigmoid
-        p = _sigmoid(sig * score)
+        p = _sigmoid_xla(sig * score)
         grad = sig * (p - y)
         hess = sig * sig * p * (1.0 - p)
         return _class_weight(grad, hess, weight)
 
     def convert_output(self, score):
-        p = _sigmoid(self.sigmoid * score)
+        p = _sigmoid_xla(self.sigmoid * score)
         return p / torch.sum(p, dim=-1, keepdim=True)
 
 
@@ -411,14 +458,14 @@ class CrossEntropy(Objective):
         return float(np.log(pavg / (1.0 - pavg)))
 
     def get_gradients(self, score, label, weight):
-        p = _sigmoid(score)
+        p = _sigmoid_xla(score)
         if weight is None:
             return p - label, p * (1.0 - p)
         # weighted cross-entropy: gradient scales with weight
         return (p - label) * weight, p * (1.0 - p) * weight
 
     def convert_output(self, score):
-        return _sigmoid(score)
+        return _sigmoid_xla(score)
 
 
 class CrossEntropyLambda(Objective):

@@ -9,16 +9,17 @@ row of every tree advances one level per step by gathering its node's
 attributes (the JAX package's one-hot matmul form exists because gathers
 are slow on the TPU; on the card a gather is the direct form). The number
 of steps is the forest's depth, computed on the host, so the loop needs no
-device sync. Tree t of a multiclass forest belongs to class t % K (K trees
-an iteration, in class order); per-class scores add the trees' leaf values
-in tree order, as the JAX package does, so float32 sums agree bit for
-bit. Where the forest carries ``is_cat`` / ``cat_bitset``, a categorical
-node sends a row left iff its bin's bit is set in the node's bitset, so
-NaN and unseen categories (bin 0) go right.
+device sync. Tree t of a multiclass forest belongs to the class that
+``class_index[t]`` names (the stack may be any subset of trees, as DART's
+dropped trees are); per-class scores add the trees' leaf values in tree order, as the JAX
+package does, so float32 sums agree bit for bit. Where the forest carries
+``is_cat`` / ``cat_bitset``, a categorical node sends a row left iff its
+bin's bit is set in the node's bitset, so NaN and unseen categories (bin 0)
+go right.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -26,7 +27,8 @@ import torch
 def forest_predict_binned(stacked: Dict[str, torch.Tensor],
                           bins: torch.Tensor, feat_num_bin: torch.Tensor,
                           feat_has_nan: torch.Tensor, max_depth: int,
-                          num_class: int = 0, first_tree: int = 0
+                          num_class: int = 0,
+                          class_index: Optional[Sequence[int]] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route every row of ``bins`` through T stacked trees.
 
@@ -37,14 +39,16 @@ def forest_predict_binned(stacked: Dict[str, torch.Tensor],
         words holding uint32 bit patterns).
       bins: ``[n, F]`` uint8 binned features.
       max_depth: the forest's depth (``Tree.leaf_depths``' maximum).
-      num_class: K > 0 sums tree t into class ``(first_tree + t) % K``
-        of an ``[n, K]`` score (``first_tree``: the forest index of the
-        first stacked tree); 0 sums every tree into one ``[n]`` score.
+      num_class: K > 0 sums tree t into class ``class_index[t]`` (host
+        ints, ``[T]``, required) of an ``[n, K]`` score; 0 sums every tree
+        into one ``[n]`` score.
 
     Returns:
       (raw score sum ``[n]`` or ``[n, K]`` float32, leaf index per tree
       ``[T, n]``).
     """
+    if num_class and class_index is None:
+        raise ValueError("a multiclass forest needs its class_index")
     sf = stacked["split_feature"].to(torch.int64)            # [T, Ln]
     T, Ln = sf.shape
     n = bins.shape[0]
@@ -85,7 +89,7 @@ def forest_predict_binned(stacked: Dict[str, torch.Tensor],
     cols = [torch.zeros(n, dtype=torch.float32, device=dev)
             for _ in range(max(num_class, 1))]
     for t in range(T):
-        c = (first_tree + t) % num_class if num_class else 0
+        c = int(class_index[t]) if num_class else 0
         cols[c] = cols[c] + vals[t]
     score = torch.stack(cols, dim=1) if num_class else cols[0]
     return score, leaf.to(torch.int32)

@@ -20,9 +20,13 @@ out).
 Every float operation repeats the JAX package's on its CPU backend in the
 same order, so identical histograms give bit-identical splits: the prefix
 sums are XLA's blocked scan (``_cumsum_bins``), the sorts are stable, and
-the gains are the same element-wise expressions. Monotone, CEGB,
-path-smoothing, extra-trees and feature-contribution variants are not
-ported yet.
+the gains are the same element-wise expressions. Monotone constraints
+(``SplitConfig.has_monotone``) clip every candidate's outputs to the
+leaf's inherited range, take the gains at the clipped outputs, veto the
+thresholds whose outputs break the feature's direction, and scale the
+gains of constrained features by ``monotone_penalty``'s depth factor
+after the validity check. CEGB, path-smoothing, extra-trees and
+feature-contribution variants are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+
+from ..utils.fp import fma
 
 NEG_INF = float("-inf")
 
@@ -83,6 +89,14 @@ class SplitConfig:
     cat_l2: float = 10.0
     max_cat_to_onehot: int = 4
     min_data_per_group: int = 100
+    # monotone constraints (monotone_constraints.hpp): candidate outputs
+    # are clipped to the leaf's inherited [out_lower, out_upper], gains
+    # taken at the clipped outputs, and thresholds whose outputs break
+    # the feature's direction vetoed (find_best_split's `mono`)
+    has_monotone: bool = False
+    # ComputeMonotoneSplitGainPenalty: gains of splits on constrained
+    # features scale by a depth factor < 1 (find_best_split's `depth`)
+    monotone_penalty: float = 0.0
 
 
 def threshold_l1(s: torch.Tensor, l1: float) -> torch.Tensor:
@@ -113,13 +127,49 @@ def calc_leaf_output(sum_g: torch.Tensor, sum_h: torch.Tensor, l1: float,
     return out
 
 
+def leaf_gain_at_output(sum_g: torch.Tensor, sum_h: torch.Tensor, l1: float,
+                        l2: float, output: torch.Tensor) -> torch.Tensor:
+    """Leaf gain at a given (possibly clipped) output,
+    ``GetLeafSplitGainGivenOutput``: ``leaf_gain`` at the unconstrained
+    optimum. ``2 t output + (h + l2) output^2`` with the first product
+    fused into the sum, as XLA's CPU backend contracts it."""
+    t = threshold_l1(sum_g, l1)
+    return -fma(2.0 * t, output, (sum_h + l2) * output * output)
+
+
+def monotone_penalty_factor(depth: torch.Tensor,
+                            penalization: float) -> torch.Tensor:
+    """Gain factor of splits on constrained features at ``depth``
+    (``ComputeMonotoneSplitGainPenalty``): ~0 while depth + 1 <=
+    penalization, then rising toward 1. float32, as the JAX package
+    computes it."""
+    eps = 1e-10
+    d = depth.to(torch.float32)
+    two = torch.full_like(d, 2.0)
+    f_small = 1.0 - torch.full_like(d, penalization) / torch.pow(two, d) \
+        + eps
+    f_large = 1.0 - torch.pow(two, (penalization - 1.0) - d) + eps
+    f = f_small if penalization <= 1.0 else f_large
+    return torch.where(penalization >= d + 1.0, eps, f)
+
+
+def clip(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
+         ) -> torch.Tensor:
+    """``jnp.clip``: ``min(max(x, lo), hi)`` (``hi`` where ``lo > hi``)."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
 def _numerical_candidates(hist, parent_sums, num_bin, has_nan, num_allowed,
-                          cfg: SplitConfig):
+                          cfg: SplitConfig, mono=None, out_lower=None,
+                          out_upper=None, depth=None):
     """Threshold-scan gains ``[..., F, B, 2]`` and left sums
     ``[..., F, B, 2, 3]`` — dir 0: missing right, dir 1: missing left.
 
     hist ``[..., F, B, 3]``, parent_sums ``[..., 3]``, num_bin / has_nan
-    ``[F]``, num_allowed ``[..., F]`` (or ``[F]``)."""
+    ``[F]``, num_allowed ``[..., F]`` (or ``[F]``). With
+    ``cfg.has_monotone``: ``mono`` ``[F]`` in {-1, 0, +1} and the leaves'
+    output ranges ``out_lower`` / ``out_upper`` ``[...]``; with
+    ``cfg.monotone_penalty`` also ``depth`` ``[...]``."""
     B = hist.shape[-2]
     dev = hist.device
     bin_idx = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
@@ -136,11 +186,31 @@ def _numerical_candidates(hist, parent_sums, num_bin, has_nan, num_allowed,
     lg, lh, lc = left[..., 0], left[..., 1], left[..., 2]
     rg, rh, rc = right[..., 0], right[..., 1], right[..., 2]
 
-    parent_gain = leaf_gain(parent_sums[..., 0], parent_sums[..., 1],
-                            cfg.lambda_l1, cfg.lambda_l2)
-    gain = (leaf_gain(lg, lh, cfg.lambda_l1, cfg.lambda_l2)
-            + leaf_gain(rg, rh, cfg.lambda_l1, cfg.lambda_l2)
-            - parent_gain[..., None, None, None])
+    use_mono = cfg.has_monotone and mono is not None
+    if use_mono:
+        l1, l2, mds = cfg.lambda_l1, cfg.lambda_l2, cfg.max_delta_step
+        lo = out_lower[..., None, None, None]
+        hi = out_upper[..., None, None, None]
+        l_out = clip(calc_leaf_output(lg, lh, l1, l2, mds), lo, hi)
+        r_out = clip(calc_leaf_output(rg, rh, l1, l2, mds), lo, hi)
+        # the parent's gain is taken at its clipped output too
+        p_out = clip(calc_leaf_output(parent_sums[..., 0],
+                                       parent_sums[..., 1], l1, l2, mds),
+                      out_lower, out_upper)
+        parent_gain = leaf_gain_at_output(parent_sums[..., 0],
+                                          parent_sums[..., 1], l1, l2, p_out)
+        gain = (leaf_gain_at_output(lg, lh, l1, l2, l_out)
+                + leaf_gain_at_output(rg, rh, l1, l2, r_out)
+                - parent_gain[..., None, None, None])
+        # +1 (increasing): the left output must not exceed the right
+        violates = (mono[:, None, None].to(torch.float32)
+                    * (l_out - r_out)) > 0
+    else:
+        parent_gain = leaf_gain(parent_sums[..., 0], parent_sums[..., 1],
+                                cfg.lambda_l1, cfg.lambda_l2)
+        gain = (leaf_gain(lg, lh, cfg.lambda_l1, cfg.lambda_l2)
+                + leaf_gain(rg, rh, cfg.lambda_l1, cfg.lambda_l2)
+                - parent_gain[..., None, None, None])
 
     has_nan_i = has_nan.to(torch.int32)
     n_value_bins = num_bin - has_nan_i
@@ -153,6 +223,14 @@ def _numerical_candidates(hist, parent_sums, num_bin, has_nan, num_allowed,
              & (lh >= cfg.min_sum_hessian_in_leaf)
              & (rh >= cfg.min_sum_hessian_in_leaf)
              & (gain > cfg.min_gain_to_split))
+    if use_mono:
+        valid = valid & ~violates
+    if cfg.monotone_penalty > 0.0 and use_mono and depth is not None:
+        # after the validity check, as the reference scales the gain
+        # found by FindBestThreshold
+        pf = monotone_penalty_factor(depth, cfg.monotone_penalty)
+        gain = torch.where((mono != 0)[:, None, None],
+                           gain * pf[..., None, None, None], gain)
     return torch.where(valid, gain, NEG_INF), left
 
 
@@ -171,7 +249,7 @@ def _pack_bitset(inset: torch.Tensor) -> torch.Tensor:
 
 
 def _categorical_candidates(hist, parent_sums, num_bin, cat_allowed,
-                            cfg: SplitConfig):
+                            cfg: SplitConfig, out_lower=None, out_upper=None):
     """Candidate categorical gains ``[..., Fc, 3, B]`` over the modes
     (one-hot, sorted ascending, sorted descending), the two sort orders
     ``[..., Fc, 2, B]``, the sorted prefix sums ``[..., Fc, 2, B, 3]`` and
@@ -180,14 +258,23 @@ def _categorical_candidates(hist, parent_sums, num_bin, cat_allowed,
     hist ``[..., Fc, B, 3]``, parent_sums ``[..., 3]``, num_bin ``[Fc]``,
     cat_allowed ``[..., Fc]`` (or ``[Fc]``): the features scanned here and
     allowed in this leaf. Bin 0 (NaN and unseen categories) never enters
-    a left set."""
+    a left set. With monotone bounds (``out_lower`` / ``out_upper``
+    ``[...]``) the gains are taken at outputs clipped to the leaves'
+    ranges, as on the numerical scan; the features carry no direction."""
     B = hist.shape[-2]
     dev = hist.device
     bin_idx = torch.arange(B, dtype=torch.int32, device=dev)
     cnt = hist[..., 2]
     l1, l2c = cfg.lambda_l1, cfg.lambda_l2 + cfg.cat_l2
     pg, ph, pc = (parent_sums[..., i] for i in range(3))
-    parent_gain = leaf_gain(pg, ph, l1, l2c)
+    mds = cfg.max_delta_step
+    bounded = cfg.has_monotone and out_lower is not None
+    if bounded:
+        p_out = clip(calc_leaf_output(pg, ph, l1, l2c, mds), out_lower,
+                      out_upper)
+        parent_gain = leaf_gain_at_output(pg, ph, l1, l2c, p_out)
+    else:
+        parent_gain = leaf_gain(pg, ph, l1, l2c)
     min_cnt = float(max(cfg.min_data_in_leaf, cfg.min_data_per_group))
     valid_bin = ((bin_idx >= 1) & (bin_idx < num_bin[:, None]) & (cnt > 0)
                  & cat_allowed[..., None])                     # [..., Fc, B]
@@ -197,8 +284,16 @@ def _categorical_candidates(hist, parent_sums, num_bin, cat_allowed,
         def p(a):
             return a.reshape(a.shape + (1,) * extra_dims)
         rg, rh, rc = p(pg) - lg, p(ph) - lh, p(pc) - lc
-        g = (leaf_gain(lg, lh, l1, l2c) + leaf_gain(rg, rh, l1, l2c)
-             - p(parent_gain))
+        if bounded:
+            lo, hi = p(out_lower), p(out_upper)
+            lo_out = clip(calc_leaf_output(lg, lh, l1, l2c, mds), lo, hi)
+            ro_out = clip(calc_leaf_output(rg, rh, l1, l2c, mds), lo, hi)
+            g = (leaf_gain_at_output(lg, lh, l1, l2c, lo_out)
+                 + leaf_gain_at_output(rg, rh, l1, l2c, ro_out)
+                 - p(parent_gain))
+        else:
+            g = (leaf_gain(lg, lh, l1, l2c) + leaf_gain(rg, rh, l1, l2c)
+                 - p(parent_gain))
         ok = ((lc >= min_cnt) & (rc >= min_cnt)
               & (lh >= cfg.min_sum_hessian_in_leaf)
               & (rh >= cfg.min_sum_hessian_in_leaf)
@@ -237,7 +332,7 @@ def _categorical_candidates(hist, parent_sums, num_bin, cat_allowed,
 
 
 def _categorical_best(hist, parent_sums, num_bin, cat_allowed,
-                      cfg: SplitConfig):
+                      cfg: SplitConfig, out_lower=None, out_upper=None):
     """Best categorical split of each leaf (reference:
     ``FindBestThresholdCategoricalInner``, through the JAX package's
     ``_categorical_best``). Ties go to the first index of the flattened
@@ -247,7 +342,7 @@ def _categorical_best(hist, parent_sums, num_bin, cat_allowed,
     B = hist.shape[-2]
     dev = hist.device
     all_gain, orders, cum, valid_bin = _categorical_candidates(
-        hist, parent_sums, num_bin, cat_allowed, cfg)
+        hist, parent_sums, num_bin, cat_allowed, cfg, out_lower, out_upper)
     flat = all_gain.flatten(-3)
     best = torch.argmax(flat, dim=-1, keepdim=True)
     best_gain = torch.gather(flat, -1, best)[..., 0]
@@ -312,7 +407,11 @@ def find_best_split(hist: torch.Tensor, parent_sums: torch.Tensor,
                     num_bin: torch.Tensor, has_nan: torch.Tensor,
                     allowed_feature: torch.Tensor,
                     cfg: SplitConfig, is_cat: Optional[torch.Tensor] = None,
-                    cat_idx: Optional[torch.Tensor] = None
+                    cat_idx: Optional[torch.Tensor] = None,
+                    mono: Optional[torch.Tensor] = None,
+                    out_lower: Optional[torch.Tensor] = None,
+                    out_upper: Optional[torch.Tensor] = None,
+                    depth: Optional[torch.Tensor] = None
                     ) -> Dict[str, torch.Tensor]:
     """Best split of each leaf given its histogram.
 
@@ -327,6 +426,12 @@ def find_best_split(hist: torch.Tensor, parent_sums: torch.Tensor,
         ``[Fc]`` int64 indices, whose histograms alone the categorical
         scan reads (the JAX package's ``cat_positions``); read only when
         ``cfg.has_categorical``.
+      mono: ``[F]`` int8 directions in {-1, 0, +1} and ``out_lower`` /
+        ``out_upper`` the leaves' output ranges ``[...]`` (±inf for no
+        bound, as at the root), given together; read only when
+        ``cfg.has_monotone``.
+      depth: ``[...]`` int32 leaf depths; read only with
+        ``cfg.monotone_penalty > 0``.
 
     Returns dict of ``[...]`` tensors: ``gain`` (−inf if no valid split),
     ``feature``, ``threshold_bin`` (split sends ``bin <= t`` left),
@@ -341,8 +446,17 @@ def find_best_split(hist: torch.Tensor, parent_sums: torch.Tensor,
     categorical = cfg.has_categorical and cat_idx is not None
     num_allowed = allowed_feature & ~is_cat if categorical \
         else allowed_feature
+    bounds = {}
+    if cfg.has_monotone and mono is not None:
+        if out_lower is None or out_upper is None:
+            raise ValueError("monotone split search needs out_lower and "
+                             "out_upper")
+        bounds = dict(out_lower=out_lower, out_upper=out_upper)
+    else:
+        mono = None
     gain, left = _numerical_candidates(hist, parent_sums, num_bin, has_nan,
-                                       num_allowed, cfg)
+                                       num_allowed, cfg, mono=mono,
+                                       depth=depth, **bounds)
     flat = gain.flatten(-3)                                   # [..., F*B*2]
     best = torch.argmax(flat, dim=-1, keepdim=True)
     best_gain = torch.gather(flat, -1, best)[..., 0]
@@ -358,7 +472,7 @@ def find_best_split(hist: torch.Tensor, parent_sums: torch.Tensor,
     if categorical:
         cgain, cfeat, cleft, cinset = _categorical_best(
             hist.index_select(-3, cat_idx), parent_sums, num_bin[cat_idx],
-            allowed_feature.index_select(-1, cat_idx), cfg)
+            allowed_feature.index_select(-1, cat_idx), cfg, **bounds)
         cfeat = cat_idx[cfeat]
         take_cat = cgain > best_gain
         best_gain = torch.maximum(best_gain, cgain)

@@ -1058,3 +1058,117 @@ def test_card_sort_orders_ties_by_index(cuda_device):
     key = (-s).numpy()
     np.testing.assert_array_equal(
         want.numpy(), np.argsort(key, axis=1, kind="stable"))
+
+
+def _sigmoid_inputs():
+    """10^6 float32 inputs: normal draws at three scales, a dense grid
+    over [-100, 100], and the edges (±inf, NaN, ±0, subnormals, the
+    clamp bounds, the overflow and underflow thresholds)."""
+    rng = np.random.default_rng(0)
+    draws = np.concatenate([rng.normal(size=200_000) * s
+                            for s in (0.5, 2.0, 6.0)])
+    edges = np.array([np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-45, -1e-45,
+                      1e-40, -1e-40, -87.8, 88.8, 88.72, 88.73, -87.33,
+                      -87.34, 3.4e38, -3.4e38])
+    grid = np.linspace(-100.0, 100.0, 400_000 - len(edges))
+    return torch.from_numpy(np.concatenate([draws, grid, edges])
+                            .astype(np.float32))
+
+
+def test_xla_exp_and_sigmoid_on_the_card_equal_the_cpu(cuda_device):
+    """``_exp_xla`` and ``_sigmoid_xla`` are correctly rounded IEEE steps
+    (float64 products and sums, floor, a power-of-two scale from the
+    exponent bits), so the card gives the CPU's bits, and with them the
+    binary objective's gradients. A NaN input gives NaN on both devices;
+    its payload bits are not held."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.objective import (_exp_xla, _sigmoid_xla,
+                                              create_objective)
+    x = _sigmoid_inputs()
+    for fn in (_exp_xla, _sigmoid_xla):
+        got = fn(x.to(cuda_device)).cpu()
+        want = fn(x)
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        bad = (got.view(torch.int32) != want.view(torch.int32)) & ~nan
+        assert not bad.any(), (fn.__name__, x[bad][:8].tolist(),
+                               got[bad][:8].tolist(), want[bad][:8].tolist())
+    obj = create_objective(Config({"objective": "binary", "sigmoid": 1.5,
+                                   "scale_pos_weight": 2.0}))
+    rng = np.random.default_rng(1)
+    s = torch.from_numpy(rng.normal(scale=3, size=100_000)
+                         .astype(np.float32))
+    y = torch.from_numpy((rng.random(100_000) < 0.4).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.2, 3, size=100_000)
+                         .astype(np.float32))
+    for a, b in zip(obj.get_gradients(s.to(cuda_device), y.to(cuda_device),
+                                      w.to(cuda_device)),
+                    obj.get_gradients(s, y, w)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_dart_dropped_tree_predict_on_the_card_equals_the_cpu(cuda_device):
+    """DART's dropped trees (iterations out of order, K = 3 trees each)
+    traversed on the card and on the CPU: the per-class sums run in the
+    stack's order, so the bits agree."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.predict import forest_predict_binned
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(4000, 8))
+    y = np.argmax(X[:, :3] + rng.normal(size=(4000, 3)), axis=1)
+    bst = lgt.train({"objective": "multiclass", "num_class": 3,
+                     "boosting": "dart", "num_leaves": 15,
+                     "learning_rate": 0.3, "drop_rate": 0.5,
+                     "use_quantized_grad": True, "verbosity": -1,
+                     "device_type": "cpu"},
+                    lgt.Dataset(X, label=y.astype(np.float64)),
+                    num_boost_round=8)
+    eng = bst.engine
+    assert eng.drop_iterations > 0
+    idx = [i * 3 + c for i in (6, 1, 4) for c in range(3)]
+    stacked, cls, depth = eng._stack_model_list(idx)
+    bins = eng._logical_bins()
+    want, wl = forest_predict_binned(stacked, bins, eng.feat_num_bin,
+                                     eng.feat_has_nan, depth, 3,
+                                     class_index=cls)
+    dev = {k: v.to(cuda_device) for k, v in stacked.items()}
+    got, gl = forest_predict_binned(dev, bins.to(cuda_device),
+                                    eng.feat_num_bin.to(cuda_device),
+                                    eng.feat_has_nan.to(cuda_device), depth,
+                                    3, class_index=cls)
+    assert torch.equal(gl.cpu(), wl)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_dart_monotone_training_card_matches_cpu(cuda_device):
+    """DART under GOSS with a monotone constraint (intermediate method,
+    leaf batch 8) on the card and on the CPU from the same draws: the
+    same drops, identical split lines, predictions within 1e-5."""
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.default_rng(4)
+    n = 4000
+    X = rng.normal(size=(n + 1000, 10))
+    y = 2 * X[:, 0] + np.abs(X[:, 1]) + rng.normal(scale=0.5, size=n + 1000)
+    keys = ("split_feature", "threshold", "decision_type", "left_child",
+            "right_child", "num_leaves")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        bst = lgt.train({"objective": "regression", "boosting": "dart",
+                         "data_sample_strategy": "goss", "top_rate": 0.2,
+                         "other_rate": 0.1, "num_leaves": 15,
+                         "learning_rate": 0.5, "drop_rate": 0.5,
+                         "skip_drop": 0.2, "tpu_leaf_batch": 8,
+                         "monotone_constraints": [1] + [0] * 9,
+                         "monotone_constraints_method": "intermediate",
+                         "use_quantized_grad": True,
+                         "stochastic_rounding": False, "verbosity": -1,
+                         "device_type": dev},
+                        lgt.Dataset(X[:n], label=y[:n]), num_boost_round=6,
+                        noise=_SameDraws(dev))
+        out[dev] = ([ln for ln in bst.model_to_string().splitlines()
+                     if ln.split("=", 1)[0] in keys], bst.predict(X[n:]),
+                    bst.engine.drop_iterations)
+    assert out["cuda"][2] == out["cpu"][2] > 0
+    assert out["cuda"][0] == out["cpu"][0]
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0,
+                               atol=1e-5)

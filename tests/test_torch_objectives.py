@@ -9,6 +9,7 @@ terms when it cancels. The boost-from-average init scores, host numpy in
 both, agree within 1e-12; ``convert_output`` within the same rtol; the
 leaf renewal of L1, quantile and MAPE (host numpy) is equal.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -164,3 +165,75 @@ def test_ranking_stays_refused(params, named):
         lgt.train(dict(params, device_type="cpu", verbosity=-1),
                   lgt.Dataset(X, label=(X[:, 0] > 0).astype(float)),
                   num_boost_round=1)
+
+
+def _xla_inputs():
+    """10^6 float32 inputs: normal draws at scales 0.5, 2 and 6, a dense
+    grid over [-100, 100] and the edges."""
+    rng = np.random.default_rng(0)
+    draws = np.concatenate([rng.normal(size=200_000) * s
+                            for s in (0.5, 2.0, 6.0)])
+    edges = np.array([np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-45, -1e-45,
+                      1e-40, -1e-40, 1.17e-38, -87.8, 87.8, 88.8, -88.8,
+                      88.7, 88.72, 88.723, 88.73, -87.33, -87.34, -103.9,
+                      -104.0, 104.0, 3.4e38, -3.4e38])
+    grid = np.linspace(-100.0, 100.0, 400_000 - len(edges))
+    return np.concatenate([draws, grid, edges]).astype(np.float32)
+
+
+def test_xla_exp_and_sigmoid_give_jax_bits():
+    x = _xla_inputs()
+    assert x.size == 1_000_000
+    for port, ref in ((tobj._exp_xla, jnp.exp),
+                      (tobj._sigmoid_xla, jax.nn.sigmoid)):
+        want = np.asarray(jax.jit(ref)(x))
+        got = port(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+    # the edges as XLA handles them
+    e = tobj._exp_xla(torch.tensor([np.inf, -np.inf, 88.73, -87.34, 0.0,
+                                    np.nan], dtype=torch.float32))
+    assert e[0] == np.inf and e[1] == 0.0 and e[2] == np.inf
+    assert e[3] == 0.0 and e[4] == 1.0 and torch.isnan(e[5])
+
+
+BIT_EXACT = {
+    "binary": {"objective": "binary"},
+    "binary_weighted_sigmoid": {"objective": "binary", "sigmoid": 1.5,
+                                "scale_pos_weight": 2.0},
+    "poisson": {"objective": "poisson"},
+    "gamma": {"objective": "gamma"},
+    "cross_entropy": {"objective": "cross_entropy"},
+    "multiclassova": {"objective": "multiclassova", "num_class": K,
+                      "sigmoid": 1.5},
+}
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", list(BIT_EXACT))
+def test_exp_sigmoid_gradients_bit_equal(case, weighted):
+    p = dict(BIT_EXACT[case], verbosity=-1)
+    ref = jobj.create_objective(jcfg.Config(dict(p)))
+    port = tobj.create_objective(Config(dict(p)))
+    name = p["objective"]
+    if name == "binary":
+        rng = np.random.default_rng(0)
+        score = rng.normal(scale=1.5, size=N).astype(np.float32)
+        label = (rng.random(N) < 0.4).astype(np.float32)
+        weight = (rng.uniform(0.2, 3.0, size=N).astype(np.float32)
+                  if weighted else None)
+        if hasattr(ref, "prepare"):
+            ref.prepare(label, weight)
+            port.prepare(label, weight)
+    else:
+        score, label, weight = _inputs(name, weighted)
+    g_r, h_r = ref.get_gradients(_j(score), _j(label), _j(weight))
+    g_p, h_p = port.get_gradients(_t(score), _t(label), _t(weight))
+    for got, want in ((g_p, g_r), (h_p, h_r)):
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      np.asarray(want).view(np.int32))
+    if name == "binary":
+        g_j, h_j = jax.jit(ref.get_gradients)(_j(score), _j(label),
+                                              _j(weight))
+        np.testing.assert_array_equal(g_p.numpy(), np.asarray(g_j))
+        np.testing.assert_array_equal(h_p.numpy(), np.asarray(h_j))
