@@ -125,17 +125,36 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
    monotone, DART masked, DART with the partition forced on, the
    intermediate method at leaf batch 8, ``monotone_penalty`` 1,
    ``xgboost_dart_mode``, binary DART): the same drops, split lines
-   identical, predictions within 1e-5.
+   identical, predictions within 1e-5;
+13. the input layer: bench.py::main's default rows, 10,000,000 x 28
+   Higgs-like (float64 holding float32 values), binned three ways in
+   turns (a b c c b a): (a) the plain NumPy functions (the bound search
+   and a column at a time, the route before the native binner), (b)
+   ``tpu_ingest_device=false`` (the native row-major pass), (c) ``auto``
+   (device ingest, which it must take): the seconds of the bound search,
+   the assignment and ``construct`` of each, for (c) also its chunks, H2D
+   bytes and the assignment's device ms; ``bins`` and ``bins_t``
+   byte-equal across the three; the flagship's settings for 3 rounds
+   from (b) and from (c): model texts equal outside the parameters block,
+   kernel A launching on the adopted ``bins_t``; then a 1M x 28 matrix of
+   NaN, +-0, +-inf, the float32 values at and beside every bound and two
+   categorical columns (unseen and negative ids), binned against fixed
+   mappers the three ways, byte-equal.
 
-Each training run sets the kernels' launch counts to 0 just before it
+Dense phases of 65,536 rows or more bin on the device (``auto``); each
+prints a ``binning ...`` line (route, seconds); the Criteo data (shared
+with the EFB phase) and the Covertype run pass ``tpu_ingest_device=false``,
+since the engine skips the bundle probe for device-resident data. Each
+training run sets the kernels' launch counts to 0 just before it
 and reads them just after. The last two lines of standard output are the
 per-kernel JSON line and the result line ``{"ok": true, "device":
 {...}}``; any failure exits non-zero before the result line.
 ``--json-out PATH`` also writes the per-kernel record, replay included,
 to PATH; ``--only-probes``, ``--only-sweep``, ``--only-objectives``,
 ``--only-categorical``, ``--only-efb``, ``--only-ranking`` and
-``--only-bosch`` build the kernels, run phase 3, 7, 8, 9, 10, 11 or 12
-and stop (no result line). It
+``--only-bosch`` and ``--only-ingest`` build the kernels, run phase 3, 7,
+8, 9, 10, 11, 12 or 13 and stop (no result line). The whole script's
+seconds are printed before the last two lines. It
 needs a CUDA device and imports neither JAX nor ``lightgbm_tpu``.
 """
 import json
@@ -375,6 +394,14 @@ BOSCH_PARITY_CASES = {
     "xgboost_dart_mode": {"xgboost_dart_mode": True},
     "binary_dart": {"objective": "binary"},
 }
+
+
+# the ingest phase: bench.py::main's default rows (--rows) at the
+# flagship's 28 features, built three ways in turns; INGEST_ROUNDS rounds
+# of the flagship's settings from the native and the device route; then
+# a 1M-row matrix of edge values with two categorical columns
+N_INGEST, N_INGEST_EDGE, INGEST_ROUNDS = 10_000_000, 1_000_000, 3
+INGEST_CATS = [26, 27]
 
 
 def synth_higgs(n, f, seed=0, regression=False):
@@ -1584,6 +1611,7 @@ def train_phase(lgt, th, tc, tp, rec):
     torch.cuda.synchronize()
     print(f"train setup (binning + upload): {time.time() - t0:.2f} s",
           flush=True)
+    binning_line(f"flagship {N_TRAIN} x {N_FEAT}", ds)
     eng = bst.engine
     if not eng.use_goss_compact:
         raise AssertionError("the GOSS compacted buffer is not engaged")
@@ -1777,7 +1805,9 @@ def multiclass_run(lgt, th, tp, modes, smi):
     Xt, yt = X[:N_COVTYPE], y[:N_COVTYPE]
     Xv, yv = X[N_COVTYPE:], y[N_COVTYPE:]
     K = len(COVTYPE_SHARES)
-    ds = lgt.Dataset(Xt, label=yt)
+    # host bins: the point of this run is EFB's 54 -> 12 columns, and the
+    # engine skips the bundle probe for device-resident data
+    ds = lgt.Dataset(Xt, label=yt, params={"tpu_ingest_device": "false"})
     bst = lgt.Booster(params=dict(FULL_PARAMS, objective="multiclass",
                                   num_class=K, tpu_hist_partition="false",
                                   metric=["multi_logloss", "multi_error"]),
@@ -1840,7 +1870,51 @@ def multiclass_run(lgt, th, tp, modes, smi):
         raise AssertionError(f"multiclass holdout {ev}")
     if r["modes"]["f32"] or min(r["hist_per_iter"]) < 2 * K:
         raise AssertionError(f"multiclass kernel A calls {r}")
+    r["binning"] = binning_line(f"Covertype {N_COVTYPE} x 54", ds)
+    r["auto"] = multiclass_auto_run(lgt, th, tp, Xt, yt, Xv, yv, r, smi)
     return r
+
+
+def multiclass_auto_run(lgt, th, tp, Xt, yt, Xv, yv, r_false, smi):
+    """The Covertype run again under the default ``tpu_ingest_device=auto``:
+    the card assigns the bins and the engine skips the EFB probe (the JAX
+    package's rule), so kernel A scans all 54 columns. Its binning
+    seconds, columns, it/s and holdout loss beside the ``false`` run's:
+    what the rule costs this workload."""
+    K = len(COVTYPE_SHARES)
+    ds = lgt.Dataset(Xt, label=yt)
+    ds.construct()
+    b = binning_line(f"Covertype {N_COVTYPE} x 54, auto", ds)
+    bst = lgt.Booster(params=dict(FULL_PARAMS, objective="multiclass",
+                                  num_class=K, tpu_hist_partition="false",
+                                  metric=["multi_logloss", "multi_error"]),
+                      train_set=ds)
+    bst.add_valid(ds.create_valid(Xv, label=yv), "holdout")
+    eng = bst.engine
+    cols = eng.data.bins_t.shape[0]
+    if ds.device_ingested() is None or eng.has_bundles or cols != Xt.shape[1]:
+        raise AssertionError(f"multiclass auto: device route "
+                             f"{ds.device_ingested() is not None}, bundles "
+                             f"{eng.has_bundles}, {cols} columns")
+    a = timed_rounds(bst, MC_ROUNDS, th, tp)
+    ev = {m: v for _, m, v, _ in bst.eval_valid()}
+    f = r_false
+    print(f"objectives: multiclass under tpu_ingest_device=auto: binning "
+          f"{b['total']:.3f} s (false: {f['binning']['total']:.3f}), "
+          f"{cols} physical columns (false: "
+          f"{f['held_against_plain']['physical_columns']}), "
+          f"{a['it_per_s']:.3f} it/s, after the first "
+          f"{a['it_per_s_after_first']:.3f} (false: {f['it_per_s']:.3f} / "
+          f"{f['it_per_s_after_first']:.3f}), holdout multi_logloss "
+          f"{ev['multi_logloss']:.6f} (false: {f['multi_logloss']:.6f}), "
+          f"multi_error {ev['multi_error']:.6f} (false: "
+          f"{f['multi_error']:.6f}) on {smi}", flush=True)
+    if not ev["multi_logloss"] < f["prior_logloss"]:
+        raise AssertionError(f"multiclass auto holdout {ev}")
+    return dict(binning=b, columns=cols, it_per_s=a["it_per_s"],
+                it_per_s_after_first=a["it_per_s_after_first"],
+                multi_logloss=ev["multi_logloss"],
+                multi_error=ev["multi_error"], launches=a["launches"])
 
 
 def quantile_run(lgt, th, tp, modes, smi):
@@ -2147,8 +2221,13 @@ def criteo_data(lgt):
     the seconds the data and binning took."""
     t0 = time.time()
     X, y = synth_criteo(N_CRITEO)
-    ds = lgt.Dataset(X, label=y, categorical_feature=CRITEO_CATS)
+    # the EFB phase bundles this Dataset: host bins, since the engine
+    # skips the bundle probe for device-resident data (the JAX package's
+    # rule: probing would copy the matrix back to the host)
+    ds = lgt.Dataset(X, label=y, categorical_feature=CRITEO_CATS,
+                     params={"tpu_ingest_device": "false"})
     ds.construct()
+    binning_line(f"Criteo {N_CRITEO} x 199", ds)
     Xa, ya = X[:CRITEO_AUC_ROWS], y[:CRITEO_AUC_ROWS]
     del X
     setup_s = time.time() - t0
@@ -2748,6 +2827,7 @@ def mslr_run(lgt, th, tc, tp, serial, gbdt, smi):
           f"{MSLR_DOCS} documents ({n} rows) x {MSLR_F}, holdout "
           f"{N_MSLR_QUERIES - N_MSLR_TRAIN_QUERIES} queries: data and "
           f"binning {setup_s:.1f} s", flush=True)
+    binning_line(f"MSLR {n} x {MSLR_F}", ds)
     runs, texts = {}, {}
     rec = HistRecorder(serial, th)
     crec = CallRecorder(gbdt, "compact_by_mask")
@@ -2828,6 +2908,8 @@ def lengths_run(lgt, th, tc, tp, smi):
     ds = lgt.Dataset(X, label=rel, group=counts).construct()
     bin_s = time.time() - t0
     del X
+    binning_line(f"MSLR lengths {ds.num_data} x {MSLR_F}", ds,
+                 "24-26 s by the NumPy route")
     bst = lgt.Booster(params=dict(MSLR_PARAMS, **MSLR_PATHS["masked"]),
                       train_set=ds)
     eng = bst.engine
@@ -2836,7 +2918,7 @@ def lengths_run(lgt, th, tc, tp, smi):
     share = pair_share(counts, T)
     print(f"ranking: MSLR lengths: {len(counts)} queries, {ds.num_data} "
           f"rows x {MSLR_F} (mean {counts.mean():.1f}, longest {M} "
-          f"documents): data {gen_s:.1f} s, host binning {bin_s:.1f} s; "
+          f"documents): data {gen_s:.1f} s, binning {bin_s:.1f} s; "
           f"real pairs are {share:.4f} of the padded [Q, T, M] pair "
           f"tensor ({Q} x {T} x {M})", flush=True)
     th.multi_leaf_histogram.launches = 0
@@ -3073,6 +3155,8 @@ def bosch_run(lgt, th, tc, tp, serial, gbdt, dart, smi):
           f"), DART + GOSS + monotone (+1 on feature 0): data and binning "
           f"{setup_s:.1f} s; GOSS buffer {eng.goss_n_sub} of "
           f"{eng.data.n_pad} padded rows", flush=True)
+    binning_line(f"Bosch {N_BOSCH} x {BOSCH_F}", ds,
+                 "28-30 s by the NumPy route")
     rec = HistRecorder(serial, th)
     modes = ModeCounter(serial, th)
     crec = CallRecorder(gbdt, "compact_by_mask")
@@ -3256,7 +3340,221 @@ def bosch_phase(lgt, th, tc, tp, serial, gbdt, smi):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the ingest phase: host binning and device-side ingest at bench.py's size
+# ---------------------------------------------------------------------------
+def binning_line(label, ds, earlier=None):
+    """One line of a dataset's construct seconds (bound search,
+    assignment, whole) and route; ``earlier`` names PERF.md's figure for
+    the same data before the native binner and device ingest."""
+    s = ds.construct_seconds
+    ing = ds.device_ingested()
+    route = ("device" if ing is not None else "host native")
+    extra = ""
+    if ing is not None:
+        ms = ("not measured" if ing.assign_ms is None
+              else f"{ing.assign_ms:.2f} device ms")
+        extra = (f"; {ing.chunks} chunks, {ing.h2d_bytes} H2D bytes, "
+                 f"assignment {ms}")
+    print(f"binning {label}: {route}, bounds {s['bounds']:.3f} s, "
+          f"assignment {s['assign']:.3f} s, construct {s['total']:.3f} s"
+          f"{extra}" + (f" (before: {earlier})" if earlier else ""),
+          flush=True)
+    return dict(s, route=route, assign_device_ms=(
+        ing.assign_ms if ing is not None else None))
+
+
+def plain_binned(X, params, categorical=(), mappers=None):
+    """Route (a), the parent's: the NumPy bound search
+    (``_greedy_find_distinct_bounds_plain``) and the NumPy assignment of
+    one column at a time on a thread pool (``values_to_bins_plain``).
+    Returns (bins ``[n, n_used]``, seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lightgbm_tpu_torch.io import binning
+    t0 = time.perf_counter()
+    if mappers is None:
+        fast = binning._greedy_find_distinct_bounds
+        binning._greedy_find_distinct_bounds = \
+            binning._greedy_find_distinct_bounds_plain
+        try:
+            mappers = binning.mappers_from_params(
+                X, params, categorical_idx=list(categorical))
+        finally:
+            binning._greedy_find_distinct_bounds = fast
+    t1 = time.perf_counter()
+    used = [i for i, m in enumerate(mappers) if not m.is_trivial]
+    out = np.empty((X.shape[0], len(used)), np.uint8)
+
+    def one(jf):
+        j, f = jf
+        out[:, j] = mappers[f].values_to_bins_plain(X[:, f])
+
+    with ThreadPoolExecutor(binning.resolve_ingest_threads(0)) as ex:
+        list(ex.map(one, enumerate(used)))
+    t2 = time.perf_counter()
+    return out, {"bounds": t1 - t0, "assign": t2 - t1, "total": t2 - t0}
+
+
+def ingest_routes(lgt, X, y, label, categorical=(), reference=None):
+    """Build the binned matrix of ``X`` three ways, in turns (a b c c b a):
+    (a) the plain NumPy functions, (b) ``tpu_ingest_device=false`` (the
+    native pass), (c) ``auto`` (the device). (c) must take the device
+    route; the three ``bins`` and ``bins_t`` must be byte-equal. Returns
+    the first (b) and (c) datasets and the seconds of every run."""
+    dev = torch.device("cuda", 0)
+    params = {"bin_construct_sample_cnt": 200_000}
+    secs = {"plain": [], "native": [], "device": []}
+    keep = {}
+    for route in ("plain", "native", "device", "device", "native", "plain"):
+        if route == "plain":
+            bins, s = plain_binned(
+                X, params, categorical,
+                None if reference is None else reference.bin_mappers)
+            if "plain" not in keep:
+                keep["plain"] = bins
+            secs["plain"].append(s)
+            print(f"ingest {label} (a) plain NumPy: bounds {s['bounds']:.3f}"
+                  f" s, assignment {s['assign']:.3f} s, construct "
+                  f"{s['total']:.3f} s", flush=True)
+            continue
+        mode = "false" if route == "native" else "auto"
+        ds = lgt.Dataset(X, label=y, reference=reference,
+                         categorical_feature=list(categorical),
+                         params=dict(params, tpu_ingest_device=mode))
+        torch.cuda.synchronize()
+        ds.construct()
+        if (ds.device_ingested() is not None) != (route == "device"):
+            raise AssertionError(f"ingest {label}: tpu_ingest_device={mode}"
+                                 f" took the wrong route")
+        secs[route].append(binning_line(
+            f"ingest {label} ({'b' if route == 'native' else 'c'})", ds))
+        keep.setdefault(route, ds)
+        del ds
+    host = keep["native"].binned
+    if not np.array_equal(keep["plain"], host):
+        raise AssertionError(f"ingest {label}: the native pass's bins differ"
+                             f" from the plain NumPy functions'")
+    ing = keep["device"].device_ingested()
+    hb = torch.from_numpy(host).to(dev)
+    same = (ing.bins.dtype == ing.bins_t.dtype == torch.uint8
+            and torch.equal(ing.bins[:ing.n_rows], hb)
+            and torch.equal(ing.bins_t[:, :ing.n_rows], hb.T))
+    del hb
+    if not same:
+        raise AssertionError(f"ingest {label}: the device bins differ from "
+                             f"the host's")
+    print(f"ingest {label}: bins and bins_t byte-equal across the three "
+          f"routes ({host.size} entries)", flush=True)
+    return keep["native"], keep["device"], secs
+
+
+def edge_matrix(n, seed=11):
+    """1M x 28 float32 values (in float64) with NaN, +-0, +-inf, the float32
+    values at and beside the bounds of ``base``'s mappers, and two
+    categorical columns (NaN, unseen and negative ids among them)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, N_FEAT)).astype(np.float32).astype(np.float64)
+    X[rng.random(n) < 0.05, 3] = np.nan
+    X[rng.random(n) < 0.3, 4] = 0.0
+    X[rng.random(n) < 0.1, 4] = -0.0
+    X[rng.random(n) < 0.01, 5] = np.inf
+    X[rng.random(n) < 0.01, 5] = -np.inf
+    for c in INGEST_CATS:
+        X[:, c] = rng.integers(0, 60, size=n)
+        X[rng.random(n) < 0.02, c] = np.nan
+    return X
+
+
+def put_bound_values(X, mappers, rng):
+    """Overwrite rows with the float32 neighbours of every bound (at and
+    beside it) of each numerical column."""
+    for f, m in enumerate(mappers):
+        if m.bin_type != "numerical":
+            continue
+        ub = np.asarray(m.bin_upper_bound[:-1])
+        near = ub.astype(np.float32)
+        vals = np.concatenate([near, np.nextafter(near, np.float32(np.inf)),
+                               np.nextafter(near, np.float32(-np.inf))])
+        rows = rng.choice(len(X), size=len(vals), replace=False)
+        X[rows, f] = vals.astype(np.float64)
+    X[rng.random(len(X)) < 0.01, INGEST_CATS[0]] = 1000.0   # unseen
+    X[rng.random(len(X)) < 0.01, INGEST_CATS[1]] = -3.0
+
+
+def ingest_phase(lgt, th, smi):
+    """bench.py::main's default width, 10,000,000 x 28 Higgs-like rows
+    (float64 holding float32 values): the binned matrix three ways in
+    turns, byte-equal; the flagship's settings for INGEST_ROUNDS rounds
+    from (b) and from (c) with equal model texts outside the parameters
+    block, kernel A launching on the adopted ``bins_t``. Then the 1M x 28
+    edge matrix, binned against fixed mappers, three ways."""
+    t_phase = time.time()
+    t0 = time.time()
+    X, y = synth_higgs(N_INGEST, N_FEAT, seed=0)
+    gen_s = time.time() - t0
+    print(f"ingest: {N_INGEST} x {N_FEAT} (bench.py::main's default rows, "
+          f"synth_higgs, float64 holding float32 values): data {gen_s:.1f} "
+          f"s; {smi}", flush=True)
+    ds_b, ds_c, secs = ingest_routes(lgt, X, y, f"{N_INGEST} rows")
+    del X
+    texts, runs = {}, {}
+    for route, ds in (("native", ds_b), ("device", ds_c)):
+        th.multi_leaf_histogram.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lgt.Booster(params=dict(PARAMS), train_set=ds)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        eng = bst.engine
+        for _ in range(INGEST_ROUNDS):
+            bst.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = th.multi_leaf_histogram.launches
+        if launches == 0:
+            raise AssertionError(f"ingest: kernel A never launched ({route})")
+        if route == "device":
+            ing = ds.device_ingested()
+            if eng.data.bins_t.data_ptr() != ing.bins_t.data_ptr() \
+                    or ds._binned is not None:
+                raise AssertionError("ingest: the engine did not adopt the "
+                                     "device bins")
+        text = bst.model_to_string()
+        head, rest = text.split("\nparameters:", 1)
+        texts[route] = head + rest.split("end of parameters", 1)[1]
+        runs[route] = dict(engine_init_s=init_s, train_s=wall,
+                           kernel_a_launches=launches)
+        tag = "b" if route == "native" else "c"
+        print(f"ingest: flagship settings from ({tag}) {route}: engine "
+              f"init {init_s:.3f} s, "
+              f"{INGEST_ROUNDS} rounds {wall - init_s:.3f} s, kernel A "
+              f"{launches} launches", flush=True)
+        del bst, eng
+    if texts["native"] != texts["device"]:
+        raise AssertionError("ingest: model texts from (b) and (c) differ")
+    print(f"ingest: model texts from (b) and (c) equal outside the "
+          f"parameters block", flush=True)
+    del ds_b, ds_c
+    # the edge matrix, against the mappers of a first 1M-row set
+    rng = np.random.default_rng(12)
+    base = lgt.Dataset(edge_matrix(N_INGEST_EDGE, seed=11),
+                       categorical_feature=INGEST_CATS,
+                       params={"tpu_ingest_device": "false"}).construct()
+    Xe = edge_matrix(N_INGEST_EDGE, seed=13)
+    put_bound_values(Xe, base.bin_mappers, rng)
+    ingest_routes(lgt, Xe, None, f"{N_INGEST_EDGE} edge rows",
+                  categorical=INGEST_CATS,
+                  reference=base)
+    del Xe, base
+    res = dict(rows=N_INGEST, features=N_FEAT, data_s=gen_s, seconds=secs,
+               train=runs, phase_s=time.time() - t_phase)
+    print(f"ingest phase: {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
 def main(argv):
+    t_script = time.time()
     json_out = argv[argv.index("--json-out") + 1] if "--json-out" in argv \
         else None
     if not torch.cuda.is_available():
@@ -3338,6 +3636,10 @@ def main(argv):
     if "--only-bosch" in argv:
         bosch_phase(lgt, th, tc, tp, serial, gbdt, smi)
         return 0
+    if "--only-ingest" in argv:
+        ingest_phase(lgt, th, smi)
+        print(f"whole script: {time.time() - t_script:.1f} s", flush=True)
+        return 0
     n_full_pad = pad_rows(N_FULL, Config({}).tpu_rows_per_block)
     hist = histogram_phase(dev, th, tp, n_full_pad)
     comp = compaction_phase(dev, tc, parent)
@@ -3358,6 +3660,7 @@ def main(argv):
     del criteo
     rank = ranking_phase(lgt, th, tc, tp, serial, gbdt, smi)
     bosch = bosch_phase(lgt, th, tc, tp, serial, gbdt, smi)
+    ingest = ingest_phase(lgt, th, smi)
 
     h, c, p = hist["masked"], comp["goss"], part["half"]
     fl = {m: r["launches"] for m, r in full.items()}
@@ -3385,7 +3688,10 @@ def main(argv):
                 "mslr_lengths": rank["lengths"]["launches"].get(key, 0),
                 "ranking_card_vs_cpu": rank["card_vs_cpu"]["launches"][key],
                 "bosch": bosch["bosch"]["launches"][key],
-                "bosch_card_vs_cpu": bosch["card_vs_cpu"]["launches"][key]}
+                "bosch_card_vs_cpu": bosch["card_vs_cpu"]["launches"][key],
+                **({"ingest_10M": sum(r["kernel_a_launches"]
+                                      for r in ingest["train"].values())}
+                   if key == "histogram" else {})}
 
     def probe_entry(name, tag, source_line):
         pr = probes[name]
@@ -3469,7 +3775,8 @@ def main(argv):
     ], "train": dict({k: v for k, v in train.items()
                       if k not in ("trees_leaves",)}, full_row=full,
                      partition_sweep=sweep, objectives=objs,
-                     categorical=cat, efb=efb, ranking=rank, bosch=bosch)}
+                     categorical=cat, efb=efb, ranking=rank, bosch=bosch,
+                     ingest=ingest)}
     for v in (kernels_line["train"]["masked_it_per_s"],
               kernels_line["train"]["goss_it_per_s"]):
         if not math.isfinite(v):
@@ -3477,6 +3784,7 @@ def main(argv):
     if json_out:
         with open(json_out, "w") as fh:
             json.dump(dict(kernels_line, replay=replay), fh, indent=1)
+    print(f"whole script: {time.time() - t_script:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,8 @@ class Booster:
             self.config = Config(self.params)
             for key in ("max_bin", "min_data_in_bin",
                         "bin_construct_sample_cnt", "use_missing",
-                        "zero_as_missing", "data_random_seed"):
+                        "zero_as_missing", "data_random_seed",
+                        "device_type", "tpu_ingest_device"):
                 train_set.params.setdefault(key, getattr(self.config, key))
             self._engine = create_boosting(self.config, train_set,
                                            noise=noise)

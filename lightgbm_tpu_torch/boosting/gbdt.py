@@ -41,7 +41,7 @@ import torch
 
 from .. import capabilities
 from ..config import Config
-from ..io.dataset import Dataset
+from ..io.dataset import Dataset, apply_pandas_categorical, is_sparse
 from ..io.bundling import apply_bundles, find_bundles, plan_bundles
 from ..learner.serial import BundleMaps, GrowConfig, grow_tree
 from ..metric import eval_metric_rows, metrics_for_config
@@ -103,18 +103,43 @@ class DeviceData:
                      device: torch.device, transposed: bool,
                      binned: Optional[np.ndarray] = None) -> "DeviceData":
         """``binned`` (the bundled matrix) takes the place of the
-        dataset's own bins."""
+        dataset's own bins. A dataset binned on the device
+        (``ds.device_ingested()``) is adopted without a host round trip:
+        its bins are padded on the device (and moved only when ``device``
+        is another one)."""
         ds.construct()
         n = ds.num_data
         n_pad = pad_rows(n, rows_per_block)
-        if binned is None:
-            binned = ds.binned
-        if n_pad > n:
-            binned = np.concatenate(
-                [binned, np.zeros((n_pad - n, binned.shape[1]),
-                                  binned.dtype)])
-        bins = torch.from_numpy(np.ascontiguousarray(binned)).to(device)
-        bins_t = bins.T.contiguous() if transposed else None
+        ing = ds.device_ingested() if binned is None else None
+        if ing is not None:
+            bins, bins_t = ing.bins, ing.bins_t
+            if bins.shape[0] != n_pad:
+                bins, bins_t = bins[:n], bins_t[:, :n]
+                if n_pad > n:
+                    bins = torch.cat([bins, bins.new_zeros(
+                        (n_pad - n, bins.shape[1]))])
+                    bins_t = torch.cat([bins_t, bins_t.new_zeros(
+                        (bins_t.shape[0], n_pad - n))], dim=1)
+                if bins.device == device:
+                    # the padded copies take the originals' place, which
+                    # frees them (host_binned reads only the real rows)
+                    ing.bins, ing.bins_t = bins, bins_t
+            bins = bins.to(device)
+            bins_t = bins_t.to(device) if transposed else None
+        else:
+            if binned is None:
+                binned = ds.binned
+            if ds.device_ingested() is not None and ds._binned is not None:
+                # host upload (the EFB matrix): the host copy is now
+                # authoritative, so the device-resident ingest arrays go
+                # instead of staying on the card beside the upload
+                ds._ingest = None
+            if n_pad > n:
+                binned = np.concatenate(
+                    [binned, np.zeros((n_pad - n, binned.shape[1]),
+                                      binned.dtype)])
+            bins = torch.from_numpy(np.ascontiguousarray(binned)).to(device)
+            bins_t = bins.T.contiguous() if transposed else None
         md = ds.metadata
 
         def pad1(a):
@@ -392,6 +417,17 @@ class GBDT:
         self.has_bundles = False
         self.bundle_plan = None
         if not (c.enable_bundle and F >= 2):
+            return
+        ts = self.train_set
+        if ts.device_ingested() is not None and ts._binned is None:
+            # the JAX package's rule: probing would copy the whole
+            # device-resident matrix to the host. A warning where the
+            # caller asked for EFB by name, an info line for the default
+            say = (log.warning if "enable_bundle" in c.raw_params
+                   else log.info)
+            say("EFB bundle probe skipped: dataset is device-resident "
+                "(tpu_ingest_device); set tpu_ingest_device=false to "
+                "restore EFB")
             return
         mappers = [self.train_set.bin_mappers[f]
                    for f in self.train_set.used_features]
@@ -784,25 +820,29 @@ class GBDT:
 
     def predict(self, X, raw_score: bool = False, start_iteration: int = 0,
                 num_iteration: int = -1) -> np.ndarray:
-        """Predict on raw features, dense or scipy sparse (binned through
-        the train mappers, a sparse matrix one CSC column at a time):
+        """Predict on raw features: dense, a DataFrame (its category
+        columns coded by the training set's lists) or scipy sparse, binned
+        through the train mappers (``Dataset._bin_all_columns``: one native
+        pass over a dense matrix, a sparse one a CSC column at a time):
         ``[n]`` for one tree an iteration, ``[n, K]`` for multiclass.
         Iterations ``[start_iteration, start_iteration + num_iteration)``
         (all from ``start_iteration`` when ``num_iteration <= 0``); the
         init scores count only from iteration 0."""
-        X = Dataset._to_matrix(X)
-        if X.shape[1] != self.train_set.num_total_features:
+        ds = self.train_set
+        X = Dataset._to_matrix(
+            apply_pandas_categorical(X, ds.pandas_categorical))
+        if X.shape[1] != ds.num_total_features:
             log.fatal(f"The number of features in data ({X.shape[1]}) is "
                       f"not the same as it was in training data "
-                      f"({self.train_set.num_total_features})")
+                      f"({ds.num_total_features})")
         n, K = X.shape[0], self.num_class
         total = len(self.models) // K
         if num_iteration <= 0:
             num_iteration = total - start_iteration
         num_iteration = min(num_iteration, total - start_iteration)
         if num_iteration > 0:
-            bins = torch.from_numpy(self.train_set.bin_rows(X)).to(
-                self.device)
+            bins = torch.from_numpy(ds._bin_all_columns(
+                X, is_sparse(X))).to(self.device)
             raw = self._forest_raw(bins, start_iteration * K,
                                    num_iteration * K)
             raw = raw.cpu().numpy().astype(np.float64)

@@ -15,8 +15,11 @@ is ignored, as the JAX package ignores it outside streaming), with
 Exclusive Feature Bundling as the JAX package does it (``enable_bundle``,
 on by default, and ``max_conflict_rate``, lossy above 0 in both packages
 alike), with monotone constraints by the basic and intermediate methods
-(and ``monotone_penalty``), on dense or scipy sparse input, every metric
-(ndcg@k and map@k included) and early stopping. Every other feature of the
+(and ``monotone_penalty``), on dense, pandas (category columns included),
+scipy sparse, text-file or binary-file input, with bins assigned on the
+host's native binner or on the device (``tpu_ingest_device``; a chunk's
+rows follow from the width, so ``tpu_ingest_chunk_rows`` is not a knob),
+every metric (ndcg@k and map@k included) and early stopping. Every other feature of the
 JAX package is FATAL here with a message that names it, so an unported
 parameter fails loudly instead of silently training something else.
 """
@@ -58,7 +61,7 @@ UNPORTED_OBJECTIVES = ("custom",)
 # honours; any other one set to a non-default value is FATAL
 PORTED_KNOBS = ("tpu_rows_per_block", "tpu_leaf_batch", "tpu_goss_compact",
                 "tpu_auto_quantize", "tpu_hist_mode", "tpu_hist_partition",
-                "tpu_ingest_threads")
+                "tpu_ingest_threads", "tpu_ingest_device")
 
 
 class Capability(NamedTuple):

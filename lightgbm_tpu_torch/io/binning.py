@@ -15,10 +15,14 @@ Semantics reproduced:
   ``max_bin``-1 (rare tail pruned, mirroring the 99%% mass cut upstream);
   bin 0 is reserved for NaN/unseen categories.
 
-The implementation is NumPy (host-side); binning is a one-time load cost,
-the hot path is the binned matrix on device. This is the pure-NumPy path of
-``lightgbm_tpu/io/binning.py``; the native C++ binner is not ported yet, so
-every column takes the NumPy route (same bin mappers, same bin ids).
+Binning is host-side, a one-time load cost; the hot path is the binned
+matrix on the device. The port of ``lightgbm_tpu/io/binning.py``: the
+greedy bound search and the numerical value-to-bin pass run in the native
+C++ binner (``native/binning.cpp``, built with ``g++`` at first use); their
+NumPy versions (``_greedy_find_distinct_bounds_plain``,
+``BinMapper.values_to_bins_plain``) are the plain versions the tests hold
+the native ones against, bit for bit. Categorical columns bin in NumPy, as
+in the JAX package.
 """
 from __future__ import annotations
 
@@ -30,12 +34,21 @@ import numpy as np
 from ..utils import log
 
 
+def _native():
+    """The native binning library (built at first use; a failed build
+    raises with the compiler's message)."""
+    from ..native import binning
+    return binning()
+
+
 K_ZERO_THRESHOLD = 1e-35
 BIN_TYPE_NUMERICAL = "numerical"
 BIN_TYPE_CATEGORICAL = "categorical"
 MISSING_NONE = "none"
 MISSING_ZERO = "zero"
 MISSING_NAN = "nan"
+# the native binner's missing-type codes
+MISSING_CODE = {MISSING_NONE: 0, MISSING_ZERO: 1, MISSING_NAN: 2}
 
 
 def _greedy_find_distinct_bounds(distinct_values: np.ndarray,
@@ -43,13 +56,33 @@ def _greedy_find_distinct_bounds(distinct_values: np.ndarray,
                                  max_bin: int,
                                  total_cnt: int,
                                  min_data_in_bin: int) -> List[float]:
-    """Pick bin upper bounds over sorted distinct values.
+    """Pick bin upper bounds over sorted distinct values (native
+    ``greedy_find_bounds``).
 
     Returns a list of upper bounds; the last bound is +inf. Mirrors the
     greedy equal-mass packing of the reference's GreedyFindBin: values whose
     count exceeds the mean bin size get dedicated bins; the rest are packed
     to roughly ``mean_bin_size`` each.
     """
+    import ctypes
+    lib = _native()
+    dv = np.ascontiguousarray(distinct_values, dtype=np.float64)
+    cn = np.ascontiguousarray(counts, dtype=np.int64)
+    out = np.empty(int(max_bin) + 2, dtype=np.float64)
+    n_out = lib.greedy_find_bounds(
+        dv.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        cn.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        len(dv), int(max_bin), int(total_cnt), int(min_data_in_bin),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    return list(out[:n_out])
+
+
+def _greedy_find_distinct_bounds_plain(distinct_values: np.ndarray,
+                                       counts: np.ndarray,
+                                       max_bin: int,
+                                       total_cnt: int,
+                                       min_data_in_bin: int) -> List[float]:
+    """The NumPy version of ``_greedy_find_distinct_bounds``."""
     n_distinct = len(distinct_values)
     bounds: List[float] = []
     if n_distinct == 0:
@@ -314,7 +347,30 @@ class BinMapper:
 
     # ------------------------------------------------------------------
     def values_to_bins(self, values: np.ndarray) -> np.ndarray:
-        """Vectorized value→bin for a full column (NaN-aware)."""
+        """Value→bin for a full column (NaN-aware), int32. A numerical
+        column takes the native single pass (``bin_numeric_column``): f32
+        is read without a float64 copy, and a strided column view of a
+        row-major matrix is read in place."""
+        raw = np.asarray(values)
+        if self.bin_type == BIN_TYPE_CATEGORICAL:
+            return self.values_to_bins_plain(raw)
+        if raw.dtype not in (np.float32, np.float64) or raw.strides[0] <= 0:
+            raw = np.ascontiguousarray(raw, dtype=np.float64)
+        import ctypes
+        lib = _native()
+        ub = np.ascontiguousarray(self.bin_upper_bound, dtype=np.float64)
+        out = np.empty(len(raw), dtype=np.int32)
+        lib.bin_numeric_column(
+            raw.ctypes.data_as(ctypes.c_void_p), int(raw.dtype == np.float32),
+            len(raw), raw.strides[0] // raw.itemsize,
+            ub.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), len(ub),
+            MISSING_CODE[self.missing_type], int(self.default_bin),
+            int(self.num_bin), out.ctypes.data_as(ctypes.c_void_p), 2, 1)
+        return out
+
+    def values_to_bins_plain(self, values: np.ndarray) -> np.ndarray:
+        """The NumPy version of ``values_to_bins`` (and the categorical
+        route)."""
         values = np.asarray(values, dtype=np.float64)
         if self.bin_type == BIN_TYPE_CATEGORICAL:
             out = np.zeros(len(values), dtype=np.int32)

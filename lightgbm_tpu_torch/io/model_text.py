@@ -138,7 +138,9 @@ class HostModel:
                 start_iteration: int = 0, num_iteration: int = -1,
                 pred_leaf: bool = False) -> np.ndarray:
         from .dataset import Dataset as _DS
-        from .dataset import is_sparse
+        from .dataset import apply_pandas_categorical, is_sparse
+        # a frame's category columns become codes under the model's lists
+        data = apply_pandas_categorical(data, self.pandas_categorical)
         if is_sparse(data) and data.shape[0] > 0:
             # raw feature values, densified in bounded row chunks
             csr = data.tocsr()

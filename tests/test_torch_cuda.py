@@ -1172,3 +1172,50 @@ def test_dart_monotone_training_card_matches_cpu(cuda_device):
     assert out["cuda"][0] == out["cpu"][0]
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0,
                                atol=1e-5)
+
+
+def test_device_ingest_on_the_card_equals_the_native_host_pass(cuda_device):
+    """Device ingest at about 300k x 200 with ragged chunks (the width's
+    default chunk rows, and 4,096-row chunks with a 1,000-row tail) and two
+    categorical columns (NaN, unseen and negative ids among them), NaN,
+    +-inf and +-0: bins and bins_t byte-equal to the native host pass; the
+    engine adopts them."""
+    from lightgbm_tpu_torch.ops import ingest
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.default_rng(7)
+    n, F = 300 * 1024 + 1000, 200
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    X[rng.random((n, F)) < 0.02] = np.nan
+    X[:50, 3] = [np.inf, -np.inf, 0.0, -0.0, 1e-40] * 10
+    for c in (17, 150):
+        X[:, c] = rng.integers(0, 300, size=n)
+        X[rng.random(n) < 0.01, c] = 9999.0
+        X[rng.random(n) < 0.01, c] = -4.0
+    y = (np.nan_to_num(X[:, 0]) > 0).astype(np.float64)
+    params = {"device_type": "cuda"}
+    host = lgt.Dataset(X, label=y, categorical_feature=[17, 150],
+                       params=dict(params, tpu_ingest_device="false"))
+    host.construct()
+    dev = lgt.Dataset(X, label=y, categorical_feature=[17, 150],
+                      params=dict(params, tpu_ingest_device="auto"))
+    dev.construct()
+    ing = dev.device_ingested()
+    assert ing is not None and ing.bins.is_cuda
+    R = ingest.chunk_rows_for(F)
+    assert n % R and ing.chunks == -(-n // R) and ing.assign_ms > 0
+    want = torch.from_numpy(host.binned).to(cuda_device)
+    assert torch.equal(ing.bins, want)
+    assert torch.equal(ing.bins_t, want.T.contiguous())
+    small = ingest.device_ingest(X, host.bin_mappers, host.used_features,
+                                 cuda_device, chunk_rows=4096)
+    assert small.chunks == -(-n // 4096)
+    assert torch.equal(small.bins, want)
+    assert torch.equal(small.bins_t, want.T.contiguous())
+    del small
+    bst = lgt.Booster(params={"objective": "binary", "num_leaves": 15,
+                              "verbosity": -1, "device_type": "cuda"},
+                      train_set=dev)
+    assert bst.engine.data.bins_t.data_ptr() == ing.bins_t.data_ptr()
+    bst.update()
+    assert dev._binned is None
+    np.testing.assert_array_equal(dev.binned, host.binned)

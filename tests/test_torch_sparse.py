@@ -158,6 +158,10 @@ def test_sparse_training_matches_reference():
                                atol=1e-5)
 
 
-def test_files_stay_refused():
-    with pytest.raises(lgt.LightGBMError, match="no files"):
-        lgt.Dataset("train.csv").construct()
+def test_files_stay_refused(tmp_path):
+    """Text files load (tests/test_torch_io_files.py); streamed two-round
+    loading stays refused by name."""
+    path = tmp_path / "train.csv"
+    path.write_text("1,0.5,2\n0,1.5,3\n")
+    with pytest.raises(lgt.LightGBMError, match="two_round"):
+        lgt.Dataset(str(path), params={"two_round": True}).construct()
