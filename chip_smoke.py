@@ -139,7 +139,30 @@ It builds the package's CUDA kernels from ``lightgbm_tpu_torch/csrc`` (one
    kernel A launching on the adopted ``bins_t``; then a 1M x 28 matrix of
    NaN, +-0, +-inf, the float32 values at and beside every bound and two
    categorical columns (unseen and negative ids), binned against fixed
-   mappers the three ways, byte-equal.
+   mappers the three ways, byte-equal;
+14. the split search's options at the flagship's data and settings (1M
+   x 28 binned once on the device route, 127 leaves, GOSS with the
+   compacted buffer from iteration 10, quantized gradients), 12 rounds
+   of each of (a) ``feature_fraction_bynode`` 0.5 with ``extra_trees``,
+   (b) ``path_smooth`` 50 with ``feature_contri`` 0.5 on features 0-3,
+   (c) interaction constraints in two overlapping groups, (d) CEGB's
+   split, coupled and lazy penalties, (e) a 3-level forced-split tree on
+   features 0-2 with ``tpu_hist_partition=true``, each beside a plain
+   flagship booster updated in turns with it: it/s of both, holdout
+   AUC, kernel A / B / B′ launches, one traced GOSS iteration's
+   device-to-host copies (the plain flagship's beside (a)'s); (d)'s
+   coupled penalty must be 0 for exactly the features in use and it
+   must use fewer distinct features than the plain flagship; every tree
+   of (e) must start with the forced lines; one more GOSS iteration of
+   (a) and (e): kernel-A calls, the compaction and (e)'s partition moves
+   held bit for bit against the plain versions; then 15 runs of 20k
+   rows on the card and on the CPU from the same draws (bynode's and
+   extra_trees' included): the search options and the limits
+   (interaction, CEGB) on the masked, GOSS, partition paths and exact
+   gradients, the forced splits likewise, bynode and extra_trees on the
+   categorical guard's columns, 3-class multiclass with lazy CEGB, DART
+   with bynode and interaction constraints: split lines identical,
+   predictions within 1e-5.
 
 Dense phases of 65,536 rows or more bin on the device (``auto``); each
 prints a ``binning ...`` line (route, seconds); the Criteo data (shared
@@ -152,8 +175,9 @@ per-kernel JSON line and the result line ``{"ok": true, "device":
 ``--json-out PATH`` also writes the per-kernel record, replay included,
 to PATH; ``--only-probes``, ``--only-sweep``, ``--only-objectives``,
 ``--only-categorical``, ``--only-efb``, ``--only-ranking`` and
-``--only-bosch`` and ``--only-ingest`` build the kernels, run phase 3, 7,
-8, 9, 10, 11, 12 or 13 and stop (no result line). The whole script's
+``--only-bosch``, ``--only-ingest`` and ``--only-split-options`` build the
+kernels, run phase 3, 7, 8, 9, 10, 11, 12, 13 or 14 and stop (no result
+line). The whole script's
 seconds are printed before the last two lines. It
 needs a CUDA device and imports neither JAX nor ``lightgbm_tpu``.
 """
@@ -402,6 +426,66 @@ BOSCH_PARITY_CASES = {
 # a 1M-row matrix of edge values with two categorical columns
 N_INGEST, N_INGEST_EDGE, INGEST_ROUNDS = 10_000_000, 1_000_000, 3
 INGEST_CATS = [26, 27]
+
+# the split options phase: the flagship's data and settings (PARAMS,
+# N_TRAIN rows, N_HOLDOUT held out, binned once on the device route) with
+# one option set a run, OPT_ROUNDS rounds (GOSS from iteration 1 / 0.1 =
+# 10), each beside a plain flagship booster updated in turns with it,
+# iteration for iteration. OPT_FORCED: a 3-level forced-split tree on
+# features 0-2 (preorder: the root, its left subtree, its right subtree)
+OPT_ROUNDS = 12
+OPT_FORCED = {"feature": 0, "threshold": 0.0,
+              "left": {"feature": 1, "threshold": 0.0,
+                       "left": {"feature": 2, "threshold": -0.5},
+                       "right": {"feature": 2, "threshold": 0.5}},
+              "right": {"feature": 2, "threshold": 0.0,
+                        "left": {"feature": 1, "threshold": -0.5},
+                        "right": {"feature": 1, "threshold": 0.5}}}
+OPT_RUNS = {
+    "bynode_extra_trees": {"feature_fraction_bynode": 0.5,
+                           "extra_trees": True},
+    "path_smooth_contri": {"path_smooth": 50.0,
+                           "feature_contri": [0.5] * 4 + [1.0] * 24},
+    "interaction": {"interaction_constraints": [list(range(16)),
+                                                list(range(12, 28))]},
+    # gains grow with the rows: 1,000 a feature's first use, 1e-4 a row
+    # of a split, 2e-4 a row that meets a feature first (at 200k rows a
+    # fifth of these took the distinct features from 15 to 6)
+    "cegb": {"cegb_penalty_split": 1e-4,
+             "cegb_penalty_feature_coupled": [1000.0] * 28,
+             "cegb_penalty_feature_lazy": [2e-4] * 28},
+    "forced_partition": {"tpu_hist_partition": "true"},
+}
+# card against CPU (N_PARITY Higgs-shaped rows, 31 leaves, PARITY_ROUNDS
+# rounds, learning rate 0.3 so that GOSS starts at iteration 3):
+# case -> (data, params); the option sets cover every option on the
+# masked, GOSS and partition paths, quantized and exact
+OPT_SEARCH = {"feature_fraction_bynode": 0.6, "extra_trees": True,
+              "path_smooth": 20.0,
+              "feature_contri": [0.5] * 4 + [1.0] * 24}
+OPT_LIMITS = {"interaction_constraints": [list(range(16)),
+                                          list(range(12, 28))],
+              "cegb_penalty_split": 1e-4,
+              "cegb_penalty_feature_coupled": [20.0] * 28,
+              "cegb_penalty_feature_lazy": [1e-3] * 28}
+OPT_PATHS = {"masked": {}, "goss": {"data_sample_strategy": "goss"},
+             "partition": {"tpu_hist_partition": "true"},
+             "exact": {"use_quantized_grad": False}}
+OPT_PARITY_CASES = dict(
+    [(f"{name}_{path}", ("higgs", dict(opts, **extra)))
+     for name, opts in (("search", OPT_SEARCH), ("limits", OPT_LIMITS),
+                        ("forced", {"forcedsplits_filename": None}))
+     for path, extra in OPT_PATHS.items()],
+    categorical_bynode_extra=("guard", {"feature_fraction_bynode": 0.5,
+                                        "extra_trees": True}),
+    multiclass_lazy=("higgs3", {"objective": "multiclass", "num_class": 3,
+                                "cegb_penalty_feature_lazy": [1e-3] * 28}),
+    dart_bynode_interaction=("higgs", {
+        "boosting": "dart", "drop_rate": 0.5, "skip_drop": 0.0,
+        "feature_fraction_bynode": 0.6,
+        "interaction_constraints": [list(range(16)), list(range(12, 28))]}))
+OPT_PARITY_PARAMS = dict(PARITY_PARAMS, objective="binary",
+                         learning_rate=0.3)
 
 
 def synth_higgs(n, f, seed=0, regression=False):
@@ -2377,6 +2461,17 @@ class SameDraws:
         return (self._u(iteration, n, 1 + 2 * k) - 0.5,
                 self._u(iteration, n, 2 + 2 * k) - 0.5)
 
+    def node_uniforms(self, iteration, k, tag, C, F):
+        u = np.random.default_rng([iteration, 1000 + k, tag]).random(
+            (C, F), dtype=np.float32)
+        return torch.from_numpy(u).to(self.device)
+
+    def extra_uniforms(self, iteration, k, tag, C, F, extra_seed=6):
+        u = np.random.default_rng([iteration, 2000 + k, tag,
+                                   extra_seed]).random((C, F),
+                                                       dtype=np.float32)
+        return torch.from_numpy(u).to(self.device)
+
 
 def categorical_parity_run(lgt, th, tc, tp, smi):
     """A 20k-row guard-shaped set (a 3-way column for the one-hot mode,
@@ -3553,6 +3648,286 @@ def ingest_phase(lgt, th, smi):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the split options phase: the split search's options at the flagship's
+# shape, and on the card against the CPU
+# ---------------------------------------------------------------------------
+def forced_file(tmp):
+    path = os.path.join(tmp, "forced.json")
+    with open(path, "w") as fh:
+        json.dump(OPT_FORCED, fh)
+    return path
+
+
+def forced_lines_hold(t):
+    """Whether tree ``t`` starts with OPT_FORCED's lines: walked from the
+    root, each node's feature, and the root's threshold within a bin
+    width (0.05 at 255 bins of a normal feature) of the forced one."""
+    def walk(node, spec):
+        if spec is None:
+            return True
+        if node < 0 or int(t.split_feature[node]) != spec["feature"]:
+            return False
+        return (walk(int(t.left_child[node]), spec.get("left"))
+                and walk(int(t.right_child[node]), spec.get("right")))
+    return (t.num_leaves >= 8 and walk(0, OPT_FORCED)
+            and abs(float(t.threshold_real[0]) - OPT_FORCED["threshold"])
+            < 0.05)
+
+
+def used_features(models):
+    return sorted({int(f) for t in models
+                   for f in t.split_feature[:t.num_nodes]})
+
+
+def launch_counts(th, tc, tp):
+    return (th.multi_leaf_histogram.launches, tc.compact_by_mask.launches,
+            tp.partition_move.launches)
+
+
+def options_run(lgt, th, tc, tp, serial, gbdt, smi, data, name, extra,
+                trace_plain):
+    """One option set at the flagship's shape: OPT_ROUNDS iterations of
+    its booster and of a plain flagship booster in turns (launches of
+    kernels A, B and B′ counted per booster from 0), it/s of each over
+    the rounds after the first, holdout AUC, one traced GOSS iteration
+    (device-to-host copies) of the option booster (and of the plain one
+    when ``trace_plain``); for the bynode / extra_trees and forced runs
+    one more GOSS iteration's kernel-A calls, compaction and partition
+    moves are recorded and returned."""
+    ds, vs, Xv, yv = data
+    boosters = {"plain": lgt.Booster(params=dict(PARAMS), train_set=ds),
+                name: lgt.Booster(params=dict(PARAMS, **extra),
+                                  train_set=ds)}
+    for b in boosters.values():
+        b.add_valid(vs, "holdout")
+    eng = boosters[name].engine
+    if not (eng.use_goss_compact and eng.grow_cfg.int_hist
+            and eng.hist_partition == ("tpu_hist_partition" in extra)):
+        raise AssertionError(f"split options {name}: engine {eng.grow_cfg}")
+    th.multi_leaf_histogram.launches = 0
+    tc.compact_by_mask.launches = 0
+    tp.partition_move.launches = 0
+    secs = {k: [] for k in boosters}
+    launches = {k: np.zeros(3, np.int64) for k in boosters}
+    for _ in range(OPT_ROUNDS):
+        for k, b in boosters.items():
+            c0 = np.array(launch_counts(th, tc, tp))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            b.update()
+            torch.cuda.synchronize()
+            secs[k].append(time.perf_counter() - t)
+            launches[k] += np.array(launch_counts(th, tc, tp)) - c0
+    r = {k: dict(it_per_s=(OPT_ROUNDS - 1) / sum(secs[k][1:]),
+                 first_iter_s=secs[k][0],
+                 launches=dict(zip(("histogram", "compact", "partition"),
+                                   (int(x) for x in launches[k]))))
+         for k in boosters}
+    for k, b in boosters.items():
+        [(_, _, auc, _)] = b.eval_valid()
+        r[k]["auc"] = auc
+        r[k]["features_used"] = used_features(b.engine.models)
+    r[name]["trace"] = trace_rounds(boosters[name], 1)
+    if trace_plain:
+        r["plain"]["trace"] = trace_rounds(boosters["plain"], 1)
+    rec = {}
+    if name in ("bynode_extra_trees", "forced_partition"):
+        hrec = HistRecorder(serial, th)
+        crec = CallRecorder(gbdt, "compact_by_mask")
+        prec = CallRecorder(serial, "partition_move")
+        try:
+            hrec.tag, crec.on, prec.on = name, True, True
+            boosters[name].update()
+        finally:
+            hrec.close()
+            crec.close()
+            prec.close()
+        rec = dict(hist=hrec.calls, compact=crec.calls, moves=prec.calls)
+    o, p = r[name], r["plain"]
+    tr = o["trace"]
+    print(f"split options: {name} at {N_TRAIN} x {N_FEAT} (flagship "
+          f"settings, GOSS from iteration 10): {o['it_per_s']:.3f} it/s "
+          f"over rounds 2-{OPT_ROUNDS} beside the plain flagship's "
+          f"{p['it_per_s']:.3f} in turns (first iterations "
+          f"{o['first_iter_s']:.3f} / {p['first_iter_s']:.3f} s) on {smi}; "
+          f"holdout AUC {o['auc']:.6f} (plain {p['auc']:.6f}); launches "
+          f"{o['launches']} (plain {p['launches']}); one traced GOSS "
+          f"iteration: {tr['wall_ms_per_iter']:.2f} ms wall, idle share "
+          f"{tr['idle_share']}, device-to-host copies {tr['dtoh_per_iter']}"
+          + (f" (plain {p['trace']['dtoh_per_iter']})" if trace_plain
+             else "")
+          + f"; distinct split features {len(o['features_used'])} (plain "
+          f"{len(p['features_used'])})", flush=True)
+    if not (o["launches"]["histogram"] > 0 and o["launches"]["compact"] > 0
+            and (o["launches"]["partition"] > 0)
+            == ("tpu_hist_partition" in extra)
+            and math.isfinite(o["it_per_s"]) and o["auc"] > 0.75):
+        raise AssertionError(f"split options {name}: {r}")
+    return r, boosters[name], rec
+
+
+def options_parity_data():
+    """The card-against-CPU data: Higgs-shaped (binary and a 3-class label
+    by the logit's terciles) and the categorical guard's (NaN in its
+    categorical columns, a 3-way column)."""
+    n = N_PARITY + N_PARITY_HOLDOUT
+    X, y = synth_higgs(n, N_FEAT, seed=4)
+    logit = synth_higgs(n, N_FEAT, seed=4, regression=True)[1]
+    y3 = np.digitize(logit, np.quantile(logit, [1 / 3, 2 / 3])).astype(
+        np.float64)
+    Xg, yg, _ = synth_guard(n, seed=3, nan_cats=True, small_cat=True)
+    return {"higgs": (X, y, []), "higgs3": (X, y3, []),
+            "guard": (Xg, yg, list(range(10, Xg.shape[1])))}
+
+
+def options_parity_run(lgt, th, tc, tp, smi, forced):
+    """Every OPT_PARITY_CASES run on the card and on the CPU from the same
+    draws (``SameDraws``, bynode's and extra_trees' included): split
+    lines identical, predictions within PARITY_PRED_TOL. On exact
+    gradients kernel A adds float32 values in another order than the
+    plain version, so there a part is allowed where every tree puts the
+    same training rows in each leaf."""
+    data = options_parity_data()
+    out = {}
+    th.multi_leaf_histogram.launches = 0
+    tc.compact_by_mask.launches = 0
+    tp.partition_move.launches = 0
+    for case, (which, extra) in OPT_PARITY_CASES.items():
+        X, y, cats = data[which]
+        if "forcedsplits_filename" in extra:
+            extra = dict(extra, forcedsplits_filename=forced)
+        res, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.time()
+            bst = lgt.train(dict(OPT_PARITY_PARAMS, device_type=dev,
+                                 **extra),
+                            lgt.Dataset(X[:N_PARITY], label=y[:N_PARITY],
+                                        categorical_feature=cats),
+                            num_boost_round=PARITY_ROUNDS,
+                            noise=SameDraws(dev))
+            eng = bst.engine
+            if eng.use_goss_compact != case.endswith("_goss") or \
+                    eng.hist_partition != case.endswith("_partition"):
+                raise AssertionError(f"split options card against CPU "
+                                     f"{case}: engine paths")
+            res[dev] = (split_lines(bst.model_to_string()),
+                        bst.predict(X[N_PARITY:]),
+                        bst.predict(X[:N_PARITY], pred_leaf=True),
+                        [t for t in eng.models])
+            secs[dev] = round(time.time() - t0, 1)
+        equal = res["cuda"][0] == res["cpu"][0]
+        same_rows = all(
+            len(set(zip(a.tolist(), b.tolist())))
+            == len(set(a.tolist())) == len(set(b.tolist()))
+            for a, b in zip(res["cuda"][2].T, res["cpu"][2].T))
+        diff = float(np.max(np.abs(res["cuda"][1] - res["cpu"][1])
+                            / np.maximum(1.0, np.abs(res["cpu"][1]))))
+        forced_ok = all(forced_lines_hold(t) for t in res["cuda"][3]) \
+            if "forcedsplits_filename" in extra else True
+        out[case] = dict(split_lines_equal=equal, same_leaf_rows=same_rows,
+                         max_rel_diff=diff, forced_lines=forced_ok)
+        print(f"split options: card against CPU, {case}: split lines "
+              f"{'identical' if equal else 'DIFFER'}, the same rows in "
+              f"every leaf {same_rows}, predictions max |diff| / max(1, "
+              f"|CPU|) {diff:.3g}"
+              + ("" if "forcedsplits_filename" not in extra else
+                 f", every tree starts with the forced lines {forced_ok}")
+              + f"; seconds {secs}", flush=True)
+        exact = extra.get("use_quantized_grad") is False
+        if not ((equal or (exact and same_rows))
+                and diff <= PARITY_PRED_TOL and forced_ok):
+            raise AssertionError(f"split options card against CPU, "
+                                 f"{case}: {out[case]}")
+    out["launches"] = {"histogram": th.multi_leaf_histogram.launches,
+                       "compact": tc.compact_by_mask.launches,
+                       "partition": tp.partition_move.launches}
+    print(f"split options: card against CPU, the card's launches "
+          f"{out['launches']}", flush=True)
+    if not all(v > 0 for v in out["launches"].values()):
+        raise AssertionError(f"split options card against CPU: launches "
+                             f"{out['launches']}")
+    return out
+
+
+def options_phase(lgt, th, tc, tp, serial, gbdt, smi):
+    """Phase 14: the split search's options at the flagship's shape (five
+    runs, each beside the plain flagship in turns), the kernels of runs
+    (a) and (e) held against their plain versions, and the card against
+    the CPU."""
+    t0 = time.time()
+    X, y = synth_higgs(N_TRAIN + N_HOLDOUT, N_FEAT, seed=0)
+    ds = lgt.Dataset(X[:N_TRAIN], label=y[:N_TRAIN])
+    vs = ds.create_valid(X[N_TRAIN:], label=y[N_TRAIN:])
+    ds.construct()
+    binning_line(f"split options {N_TRAIN} x {N_FEAT}", ds)
+    if ds.device_ingested() is None:
+        raise AssertionError("split options: the flagship's data did not "
+                             "take the device route")
+    data = (ds, vs, X[N_TRAIN:], y[N_TRAIN:])
+    del X, y
+    runs, recs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        forced = forced_file(tmp)
+        for i, (name, extra) in enumerate(OPT_RUNS.items()):
+            if name == "forced_partition":
+                extra = dict(extra, forcedsplits_filename=forced)
+            r, bst, rec = options_run(lgt, th, tc, tp, serial, gbdt, smi,
+                                      data, name, extra, i == 0)
+            runs[name] = r
+            if rec:
+                recs[name] = rec
+            eng = bst.engine
+            if name == "cegb":
+                used = used_features(eng.models)
+                pen = eng._cegb_pen().cpu().numpy()
+                zero = sorted(np.flatnonzero(pen == 0).tolist())
+                r["cegb"]["coupled_zero"] = zero
+                print(f"split options: cegb coupled penalty 0 for the "
+                      f"{len(zero)} features in use {zero}, 1000 for the "
+                      f"other {len(pen) - len(zero)}; distinct split "
+                      f"features {len(used)} against the plain flagship's "
+                      f"{len(r['plain']['features_used'])}", flush=True)
+                if not (zero == used and (pen[pen != 0] == 1000.0).all()
+                        and len(used) < len(r["plain"]["features_used"])):
+                    raise AssertionError(f"split options cegb: {r}")
+            if name == "forced_partition":
+                ok = [forced_lines_hold(t) for t in eng.models]
+                r[name]["trees_start_with_forced"] = sum(ok)
+                print(f"split options: forced_partition: {sum(ok)} of "
+                      f"{len(ok)} trees start with the 7 forced lines",
+                      flush=True)
+                if not all(ok):
+                    raise AssertionError("split options: a tree does not "
+                                         "start with the forced lines")
+            del bst, eng
+        del data, ds, vs
+        rng, exact, held = np.random.default_rng(13), {}, {}
+        for name, rec in recs.items():
+            for i, call in enumerate(rec["hist"]):
+                hold_call(th, call, f"split options {name} call {i}", rng,
+                          exact)
+            held[name] = dict(histogram_calls=len(rec["hist"]),
+                              **hold_moves(tc, tp, rec["compact"],
+                                           rec["moves"], name))
+            print(f"split options: {name}: one GOSS iteration's "
+                  f"{len(rec['hist'])} kernel-A calls (int mode and "
+                  f"exact-sum f32 bit-equal), compactions "
+                  f"{held[name]['compactions']} and partition moves "
+                  f"{held[name]['moves']} bit-equal to the plain versions",
+                  flush=True)
+            if not (rec["hist"] and len(rec["compact"]) == 1
+                    and bool(rec["moves"])
+                    == (name == "forced_partition")):
+                raise AssertionError(f"split options {name} recorded "
+                                     f"calls: {held[name]}")
+        parity = options_parity_run(lgt, th, tc, tp, smi, forced)
+    res = dict(runs=runs, held_against_plain=held, card_vs_cpu=parity,
+               seconds=time.time() - t0)
+    print(f"split options phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main(argv):
     t_script = time.time()
     json_out = argv[argv.index("--json-out") + 1] if "--json-out" in argv \
@@ -3640,6 +4015,10 @@ def main(argv):
         ingest_phase(lgt, th, smi)
         print(f"whole script: {time.time() - t_script:.1f} s", flush=True)
         return 0
+    if "--only-split-options" in argv:
+        options_phase(lgt, th, tc, tp, serial, gbdt, smi)
+        print(f"whole script: {time.time() - t_script:.1f} s", flush=True)
+        return 0
     n_full_pad = pad_rows(N_FULL, Config({}).tpu_rows_per_block)
     hist = histogram_phase(dev, th, tp, n_full_pad)
     comp = compaction_phase(dev, tc, parent)
@@ -3661,6 +4040,7 @@ def main(argv):
     rank = ranking_phase(lgt, th, tc, tp, serial, gbdt, smi)
     bosch = bosch_phase(lgt, th, tc, tp, serial, gbdt, smi)
     ingest = ingest_phase(lgt, th, smi)
+    opts = options_phase(lgt, th, tc, tp, serial, gbdt, smi)
 
     h, c, p = hist["masked"], comp["goss"], part["half"]
     fl = {m: r["launches"] for m, r in full.items()}
@@ -3691,7 +4071,11 @@ def main(argv):
                 "bosch_card_vs_cpu": bosch["card_vs_cpu"]["launches"][key],
                 **({"ingest_10M": sum(r["kernel_a_launches"]
                                       for r in ingest["train"].values())}
-                   if key == "histogram" else {})}
+                   if key == "histogram" else {}),
+                **{f"split_options_{n}": r[n]["launches"][key]
+                   for n, r in opts["runs"].items()},
+                "split_options_card_vs_cpu":
+                    opts["card_vs_cpu"]["launches"][key]}
 
     def probe_entry(name, tag, source_line):
         pr = probes[name]
@@ -3776,7 +4160,7 @@ def main(argv):
                       if k not in ("trees_leaves",)}, full_row=full,
                      partition_sweep=sweep, objectives=objs,
                      categorical=cat, efb=efb, ranking=rank, bosch=bosch,
-                     ingest=ingest)}
+                     ingest=ingest, split_options=opts)}
     for v in (kernels_line["train"]["masked_it_per_s"],
               kernels_line["train"]["goss_it_per_s"]):
         if not math.isfinite(v):

@@ -25,7 +25,10 @@ the per-class sums run in tree order from +0.0, so the padding adds
 trees alone. The JAX package's carry donation (``_donate_carries``) and
 fused iterations (``can_fuse_iters``) have no counterpart here: the port
 neither donates buffers nor fuses iterations. Saving and restoring the
-training state waits for the port's recovery slice.
+training state waits for the port's recovery slice. The split search's
+options run in the GBDT step as they are; CEGB's state (the features the
+model uses, the rows' acquired features) only grows, and
+``rollback_one_iter`` leaves it as it is, as the JAX package's does.
 """
 from __future__ import annotations
 

@@ -18,7 +18,13 @@ host leaf renewal of L1, quantile and MAPE, and the ranking objectives
 (query-grouped gradients; rank_xendcg's per-iteration gammas;
 position-debiased lambdarank's per-position state, threaded from one
 iteration's gradients to the next), monotone constraints (basic and
-intermediate, with ``monotone_penalty``), and the pieces DART
+intermediate, with ``monotone_penalty``), the split search's options
+(``feature_fraction_bynode`` and ``extra_trees`` on the noise object's
+draws, ``path_smooth``, ``feature_contri``, interaction constraints,
+CEGB's split, coupled and lazy penalties: the coupled ones fall to 0
+after the iteration whose trees first use a feature, and after each
+class tree its in-sample rows acquire the features on their paths;
+forced splits from ``forcedsplits_filename``), and the pieces DART
 (``dart.py``) builds on: stacks of any subset of trees, a model version
 that any change to the stored trees bumps, the logical bins under EFB and
 ``rollback_one_iter``. Scores and the binned
@@ -40,10 +46,11 @@ import numpy as np
 import torch
 
 from .. import capabilities
-from ..config import Config
+from ..config import Config, parse_interaction_constraints
 from ..io.dataset import Dataset, apply_pandas_categorical, is_sparse
 from ..io.bundling import apply_bundles, find_bundles, plan_bundles
-from ..learner.serial import BundleMaps, GrowConfig, grow_tree
+from ..learner.serial import BundleMaps, ForcedSplits, GrowConfig, \
+    acquire, grow_tree
 from ..metric import eval_metric_rows, metrics_for_config
 from ..objective import Objective, create_objective
 from ..ops.compact import compact_by_mask, compaction_out_cols
@@ -316,6 +323,7 @@ class GBDT:
                           if self.has_monotone else None)
         self.num_features = F
         self.allowed = torch.ones(F, dtype=torch.bool, device=dev)
+        self._setup_split_options(F)
         self.bundle = None
         bundled = None
         if self.has_bundles:
@@ -368,7 +376,15 @@ class GBDT:
             monotone_intermediate=(
                 str(c.monotone_constraints_method).lower()
                 == "intermediate"),
-            monotone_penalty=c.monotone_penalty)
+            monotone_penalty=c.monotone_penalty,
+            n_forced=0 if self._forced is None else len(self._forced.parent),
+            feature_fraction_bynode=c.feature_fraction_bynode,
+            has_interaction=self.interaction_groups is not None,
+            has_cegb=self.has_cegb, cegb_tradeoff=c.cegb_tradeoff,
+            cegb_penalty_split=c.cegb_penalty_split,
+            has_cegb_lazy=self._cegb_lazy is not None,
+            path_smooth=c.path_smooth, extra_trees=bool(c.extra_trees),
+            has_contri=self.feat_contri is not None)
 
         # ---- GOSS (goss.hpp) ------------------------------------------
         # goss.hpp truncates the DOUBLE product rate * cnt; the counts
@@ -406,6 +422,139 @@ class GBDT:
         # rows the histogram scans touched, summed over all trees (the
         # JAX package's hist.rows_scanned counter)
         self.hist_rows_scanned = 0.0
+
+    def _by_used_feature(self, values, default: float) -> np.ndarray:
+        """``[F]`` float32: ``values`` given by original feature index,
+        read at the used features (``default`` past its end)."""
+        arr = np.full(self.num_features, default, dtype=np.float32)
+        for i, f in enumerate(self.train_set.used_features):
+            if f < len(values):
+                arr[i] = float(values[f])
+        return arr
+
+    def _setup_split_options(self, F: int) -> None:
+        """The split search's options, over the used features, as the JAX
+        package's engine sets them up: ``feature_contri`` gain factors,
+        the interaction groups as a ``[G, F]`` mask, CEGB's coupled
+        penalties (host-tracked until a tree first uses the feature) and
+        lazy ones (with the ``[n_pad, F]`` acquired-feature matrix), and
+        the forced-split table."""
+        c = self.config
+        dev = self.device
+        fc = list(c.feature_contri or [])
+        self.feat_contri = None
+        if fc and any(float(v) != 1.0 for v in fc):
+            self.feat_contri = torch.as_tensor(
+                self._by_used_feature(fc, 1.0), device=dev)
+        spec = parse_interaction_constraints(c.interaction_constraints)
+        self.interaction_groups = None
+        if spec:
+            used = {f: i for i, f in
+                    enumerate(self.train_set.used_features)}
+            gm = np.zeros((len(spec), F), dtype=bool)
+            for gi, grp in enumerate(spec):
+                for f in grp:
+                    if int(f) in used:
+                        gm[gi, used[int(f)]] = True
+            self.interaction_groups = torch.as_tensor(gm, device=dev)
+        coupled = list(c.cegb_penalty_feature_coupled or [])
+        lazy = list(c.cegb_penalty_feature_lazy or [])
+        self.has_cegb = bool(c.cegb_penalty_split > 0 or any(coupled)
+                             or any(lazy))
+        self._cegb_coupled = self._cegb_used = self._cegb_pen_cache = None
+        self._cegb_lazy = self._cegb_U = None
+        if self.has_cegb and coupled:
+            self._cegb_coupled = (self._by_used_feature(coupled, 0.0)
+                                  * np.float32(c.cegb_tradeoff))
+            self._cegb_used = np.zeros(F, dtype=bool)
+        if self.has_cegb and any(lazy):
+            if self.has_bundles or self.objective.has_pos_state:
+                log.fatal("cegb_penalty_feature_lazy requires the serial "
+                          "single-device learner without EFB bundling or "
+                          "position-state objectives")
+            self._cegb_lazy = torch.as_tensor(
+                self._by_used_feature(lazy, 0.0)
+                * np.float32(c.cegb_tradeoff), device=dev)
+        self._forced = None
+        fs_path = str(c.forcedsplits_filename or "").strip()
+        if fs_path:
+            if self.has_bundles:
+                log.warning("forcedsplits_filename requires the serial "
+                            "learner, tpu_hist_mode=pool and no EFB "
+                            "bundles; ignoring forced splits")
+            else:
+                self._forced = self._load_forced_splits(fs_path)
+
+    def _load_forced_splits(self, path: str) -> Optional[ForcedSplits]:
+        """A forcedsplits_filename JSON tree (``{"feature", "threshold",
+        "left", "right"}``) as the preorder table ``grow_tree`` applies:
+        numerical thresholds become bins, a categorical entry's
+        ``threshold`` (a category or a list of them) a left-set bitset
+        over bins. Entries on unused features are skipped with their
+        subtrees, and entries past ``num_leaves - 1``, as the JAX package
+        does."""
+        import json
+        with open(path) as fh:
+            spec = json.load(fh)
+        ts = self.train_set
+        used = {f: i for i, f in enumerate(ts.used_features)}
+        W = (self.B + 31) // 32
+        rows: List[tuple] = []
+
+        def walk(node, parent_idx, is_left):
+            if not isinstance(node, dict) or "feature" not in node:
+                return
+            fo = int(node["feature"])
+            u = used.get(fo)
+            mapper = ts.bin_mappers[fo] if fo < len(ts.bin_mappers) \
+                else None
+            if u is None or mapper is None:
+                log.warning(f"forced split on unused feature {fo} "
+                            f"skipped (with its subtree)")
+                return
+            if len(rows) >= self.config.num_leaves - 1:
+                log.warning("more forced splits than num_leaves-1; "
+                            "extra entries ignored")
+                return
+            bits = np.zeros(W, np.int64)
+            cat = mapper.bin_type == "categorical"
+            tb = 0
+            if cat:
+                thr = node["threshold"]
+                hit = 0
+                for cv in (thr if isinstance(thr, (list, tuple))
+                           else [thr]):
+                    b = (mapper.cat_to_bin or {}).get(int(cv))
+                    if b is None:
+                        log.warning(f"forced categorical split: category "
+                                    f"{cv} of feature {fo} was not seen "
+                                    f"at bin time; ignored")
+                        continue
+                    bits[b >> 5] |= 1 << (b & 31)
+                    hit += 1
+                if hit == 0:
+                    log.warning(f"forced categorical split on feature {fo} "
+                                f"matched no known category; skipped "
+                                f"(with its subtree)")
+                    return
+            else:
+                tb = mapper.value_to_bin(float(node["threshold"]))
+            idx = len(rows)
+            rows.append((parent_idx, bool(is_left), u, tb, cat, bits))
+            walk(node.get("left"), idx, True)
+            walk(node.get("right"), idx, False)
+
+        walk(spec, -1, False)
+        if not rows:
+            return None
+        parent, is_left, feat, tbin, is_cat, bits = zip(*rows)
+        log.info(f"applying {len(rows)} forced split(s) at the top of "
+                 f"every tree")
+        return ForcedSplits(np.asarray(parent, np.int64),
+                            np.asarray(is_left, bool),
+                            np.asarray(feat, np.int64),
+                            np.asarray(tbin, np.int32),
+                            np.asarray(is_cat, bool), np.stack(bits))
 
     def _probe_bundles(self, F: int, num_bin: np.ndarray) -> None:
         """EFB (``enable_bundle``; FindGroups / FastFeatureBundling):
@@ -588,16 +737,71 @@ class GBDT:
         else:
             mask_gh, mask_count = self._bagging_masks()
         out = []
+        in_sample = self._sample_rows(mask_count)
         for k in range(K):
             gk = g if K == 1 else g[:, k]
             hk = h if K == 1 else h[:, k]
             vals, scale = self._vals(gk * mask_gh, hk * mask_gh,
                                      mask_count, d.n_pad, k)
-            out.append(grow_tree(d.bins_t, vals, self.feat_num_bin,
-                                 self.feat_has_nan, allowed, self.grow_cfg,
-                                 chan_scale=scale, is_cat=self.feat_is_cat,
-                                 bundle=self.bundle, mono=self.feat_mono))
+            out.append(self._grow(
+                in_sample, k, d.bins_t, vals, self.feat_num_bin,
+                self.feat_has_nan, allowed, self.grow_cfg,
+                chan_scale=scale, is_cat=self.feat_is_cat,
+                bundle=self.bundle, mono=self.feat_mono))
         return out
+
+    def _sample_rows(self, mask_count: torch.Tensor
+                     ) -> Optional[torch.Tensor]:
+        """The rows in this step's sample (only they acquire lazy CEGB's
+        features); None without lazy penalties."""
+        if self._cegb_lazy is None:
+            return None
+        if self._cegb_U is None:
+            # padding rows start acquired: they carry no penalty mass
+            self._cegb_U = (torch.arange(self.data.n_pad, device=self.device)
+                            >= self.data.n)[:, None].expand(
+                self.data.n_pad, self.num_features).contiguous()
+        return mask_count > 0
+
+    def _grow(self, in_sample: Optional[torch.Tensor], k: int, *args,
+              **kwargs):
+        """``grow_tree`` for class ``k``'s tree with the split options'
+        arguments: the draws of ``feature_fraction_bynode`` and
+        ``extra_trees``, the coupled and lazy CEGB penalties (rows outside
+        the sample ``in_sample`` count as acquired; after the tree the
+        sample's rows acquire the features on their paths, so class k + 1
+        sees class k's acquisitions), the interaction groups,
+        ``feature_contri`` and the forced splits."""
+        c = self.config
+        it, F = self.iter_, self.num_features
+        if c.feature_fraction_bynode < 1.0:
+            kwargs["node_draws"] = lambda tag, C: self.noise.node_uniforms(
+                it, k, tag, C, F)
+        if c.extra_trees:
+            kwargs["extra_draws"] = lambda tag, C: \
+                self.noise.extra_uniforms(it, k, tag, C, F, c.extra_seed)
+        if in_sample is not None:
+            kwargs["lazy"] = (self._cegb_U | ~in_sample[:, None],
+                              self._cegb_lazy)
+        tree, leaf_id = grow_tree(
+            *args, groups=self.interaction_groups, cegb_pen=self._cegb_pen(),
+            contri=self.feat_contri, forced=self._forced, **kwargs)
+        if in_sample is not None:
+            self._cegb_U = acquire(self._cegb_U, tree.pop("leaf_used"),
+                                   leaf_id, in_sample)
+        return tree, leaf_id
+
+    def _cegb_pen(self) -> Optional[torch.Tensor]:
+        """``[F]`` coupled CEGB penalties, 0 for the features the model
+        already uses; None without coupled penalties."""
+        if self._cegb_coupled is None:
+            return None
+        if self._cegb_pen_cache is None:
+            self._cegb_pen_cache = torch.as_tensor(
+                np.where(self._cegb_used, np.float32(0.0),
+                         self._cegb_coupled).astype(np.float32),
+                device=self.device)
+        return self._cegb_pen_cache
 
     def _step_goss_compact(self, allowed: torch.Tensor):
         """GOSS with histogram-only compaction: the sampled rows move into
@@ -616,15 +820,17 @@ class GBDT:
                                        self.goss_n_sub)
         cfg = dataclasses.replace(self.grow_cfg, hist_compact=True)
         out = []
+        # the lazy penalty counts the full rows (leaf_id covers them all)
+        in_sample = self._sample_rows(mask_count)
         for k in range(K):
             gk, hk = vc[k] * vc[2 * K], vc[K + k] * vc[2 * K]
             vals_c, scale = self._vals(gk, hk, vc[2 * K + 1],
                                        self.goss_n_sub, k)
-            out.append(grow_tree(d.bins_t, vals_c, self.feat_num_bin,
-                                 self.feat_has_nan, allowed, cfg,
-                                 chan_scale=scale, compact_bins_t=bins_t_c,
-                                 is_cat=self.feat_is_cat,
-                                 bundle=self.bundle, mono=self.feat_mono))
+            out.append(self._grow(
+                in_sample, k, d.bins_t, vals_c, self.feat_num_bin,
+                self.feat_has_nan, allowed, cfg, chan_scale=scale,
+                compact_bins_t=bins_t_c, is_cat=self.feat_is_cat,
+                bundle=self.bundle, mono=self.feat_mono))
         return out
 
     def goss_active(self) -> bool:
@@ -672,6 +878,14 @@ class GBDT:
             trees.append(Tree.from_device(host, lr,
                                           self.train_set.bin_mappers,
                                           self.train_set.used_features))
+        if self._cegb_used is not None:
+            # coupled penalties fall to 0 for the features these trees
+            # split on, from the next iteration on
+            for t in trees:
+                newly = t.split_feature[:t.num_nodes]
+                if len(newly) and not self._cegb_used[newly].all():
+                    self._cegb_used[newly] = True
+                    self._cegb_pen_cache = None
         for i, dd in enumerate(self.valid_data):
             self.valid_scores[i] = torch.stack(
                 [self.valid_scores[i][:, k] + tree_predict_binned(

@@ -15,7 +15,13 @@ is ignored, as the JAX package ignores it outside streaming), with
 Exclusive Feature Bundling as the JAX package does it (``enable_bundle``,
 on by default, and ``max_conflict_rate``, lossy above 0 in both packages
 alike), with monotone constraints by the basic and intermediate methods
-(and ``monotone_penalty``), on dense, pandas (category columns included),
+(and ``monotone_penalty``), with the split search's options
+(``feature_fraction_bynode``, ``extra_trees``, ``path_smooth``,
+``feature_contri``, interaction constraints, CEGB's split, coupled and
+lazy penalties, and forced splits from ``forcedsplits_filename``; lazy
+CEGB with EFB bundles or a position-debiased objective is FATAL, and EFB
+bundles ignore forced splits with a warning, as in the JAX package), on
+dense, pandas (category columns included),
 scipy sparse, text-file or binary-file input, with bins assigned on the
 host's native binner or on the device (``tpu_ingest_device``; a chunk's
 rows follow from the width, so ``tpu_ingest_chunk_rows`` is not a knob),
@@ -96,10 +102,6 @@ UNPORTED: Dict[str, Capability] = {
         "data_sample_strategy other than bagging/goss",
         lambda c: str(c.data_sample_strategy) not in ("bagging", "goss"),
         {"data_sample_strategy": "uniform"}),
-    "feature_fraction": Capability(
-        "feature_fraction_bynode < 1 (per-node column sampling)",
-        lambda c: c.feature_fraction_bynode < 1.0,
-        {"feature_fraction_bynode": 0.5}),
     "tree_learner": Capability(
         "distributed tree learners (data, voting, feature)",
         lambda c: c.tree_learner != "serial", {"tree_learner": "data"}),
@@ -117,27 +119,6 @@ UNPORTED: Dict[str, Capability] = {
                    == "advanced"),
         {"monotone_constraints": [1, 0, 0, 0],
          "monotone_constraints_method": "advanced"}),
-    "interaction_constraints": Capability(
-        "interaction constraints",
-        lambda c: bool(c.interaction_constraints),
-        {"interaction_constraints": "[0,1],[2,3]"}),
-    "cegb": Capability(
-        "CEGB",
-        lambda c: (c.cegb_tradeoff != 1.0 or c.cegb_penalty_split > 0
-                   or bool(c.cegb_penalty_feature_coupled)
-                   or bool(c.cegb_penalty_feature_lazy)),
-        {"cegb_penalty_split": 1.0}),
-    "forced_splits": Capability(
-        "forced splits", lambda c: bool(c.forcedsplits_filename),
-        {"forcedsplits_filename": "forced.json"}),
-    "path_smooth": Capability(
-        "path_smooth", lambda c: c.path_smooth > 0.0, {"path_smooth": 1.0}),
-    "extra_trees": Capability(
-        "extra_trees", lambda c: bool(c.extra_trees), {"extra_trees": True}),
-    "feature_contri": Capability(
-        "feature_contri",
-        lambda c: any(float(v) != 1.0 for v in (c.feature_contri or [])),
-        {"feature_contri": [0.5, 1.0]}),
     "quant_renew": Capability(
         "quant_train_renew_leaf", lambda c: bool(c.quant_train_renew_leaf),
         {"use_quantized_grad": True, "quant_train_renew_leaf": True}),

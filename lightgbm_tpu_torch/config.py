@@ -18,7 +18,7 @@ fatal. Which of these parameters the port actually honours is decided in
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from .utils import log
 
@@ -301,6 +301,19 @@ _PARAMS: Dict[str, Tuple[str, Any, Tuple[str, ...], Optional[Tuple[float, float]
     "tpu_hist_mode": _P("str", "pool"),
     "tpu_hist_partition": _P("str", "auto"),
 }
+
+
+def parse_interaction_constraints(spec) -> List[List[int]]:
+    """Parse interaction_constraints: ``"[0,1,2],[2,3]"`` (reference CLI
+    form), a Python list of lists, or its str() — into feature-index
+    groups."""
+    if spec is None or spec == "" or spec == []:
+        return []
+    if isinstance(spec, (list, tuple)):
+        return [[int(f) for f in grp] for grp in spec]
+    import re
+    return [[int(x) for x in grp.replace(" ", "").split(",") if x != ""]
+            for grp in re.findall(r"\[([\d,\s]*)\]", str(spec))]
 
 
 # alias -> canonical name

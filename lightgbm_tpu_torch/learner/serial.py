@@ -39,7 +39,25 @@ of ``GrowConfig`` the main path sets:
   every range each round from the current outputs of the opposite
   subtree of each constrained ancestor (``[L, L+1]`` membership
   matrices), with a shared midpoint where one round splits leaves on
-  both sides of a constrained node.
+  both sides of a constrained node;
+- the split search's options: ``feature_fraction_bynode`` (each search
+  keeps exactly ``ceil(frac * n)`` of a leaf's allowed features, by the
+  smallest of a ``[C, F]`` draw), ``extra_trees`` (one threshold per
+  leaf and feature, from a ``[C, F]`` draw), ``path_smooth`` (each leaf
+  carries its parent's output), ``feature_contri``, interaction
+  constraints (``[L+1, F]`` path features: a leaf searches the union of
+  the groups that hold its whole path), and CEGB (a split penalty, the
+  coupled per-feature one, and the lazy one: the child's rows that never
+  acquired the feature, counted by one ``index_add_`` a round). The
+  draws of a search come from the caller with the JAX package's shapes
+  and tags (``[1, F]`` at the root, tag ``L + 7``; ``[2 Kb, F]`` for a
+  round's children, inactive lanes included, tag ``split_idx``);
+- forced splits: a preorder table whose entries wait for their parent,
+  then take their target leaves' lanes in forced rounds in which no
+  other leaf splits; an entry whose child would get no rows (or at
+  ``max_depth``) is skipped with its subtree. The entries' state lives
+  on the host; a forced round reads its lanes' child counts (from the
+  target leaves' histograms) in place of the leaf election.
 
 The JAX package's ``lax.while_loop`` becomes a host-driven loop of device
 ops with one host sync per round (the top-k leaf election), plus, under
@@ -47,13 +65,13 @@ the partition, one read of the largest elected span (the budget that the
 JAX package picks on the device with ``lax.switch``). Tree arrays carry
 one trailing TRASH slot (node L-1, leaf L) so inactive batch lanes write
 harmlessly, exactly as in the JAX package, so both produce the same
-arrays. Interaction constraints, the advanced monotone method, forced
-splits, rebuild mode and the distributed modes are not ported yet.
+arrays. The advanced monotone method, rebuild mode and the distributed
+modes are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,7 +81,8 @@ from ..ops.histogram import multi_leaf_histogram
 from ..ops.partition import partition_move, slice_spans, span_budgets, \
     update_tables
 from ..ops.split import NEG_INF, SplitConfig, calc_leaf_output, clip, \
-    find_best_split
+    find_best_split, leaf_gain, smooth_output
+from ..utils.fp import f32 as round_f32, fma
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +126,31 @@ class GrowConfig:
     has_monotone: bool = False
     monotone_intermediate: bool = False
     monotone_penalty: float = 0.0
+    # forced splits: entries in the preorder forced-split table
+    # (grow_tree's `forced` argument); while entries wait, only their
+    # target leaves split
+    n_forced: int = 0
+    # per-node column sampling: each leaf searches exactly
+    # ceil(frac * n_allowed) of its allowed features, drawn from
+    # grow_tree's `node_draws`
+    feature_fraction_bynode: float = 1.0
+    # interaction constraints (grow_tree's `groups` argument): a leaf
+    # searches the union of the groups that hold every feature on its path
+    has_interaction: bool = False
+    # CEGB: the split penalty (tradeoff * penalty_split * count), the
+    # per-feature coupled penalty (grow_tree's `cegb_pen`) and the lazy
+    # per-row one (grow_tree's `lazy`)
+    has_cegb: bool = False
+    cegb_tradeoff: float = 1.0
+    cegb_penalty_split: float = 0.0
+    has_cegb_lazy: bool = False
+    # path smoothing: leaf outputs shrink toward their parent's output
+    path_smooth: float = 0.0
+    # extra_trees: one random numerical threshold per feature and leaf,
+    # drawn from grow_tree's `extra_draws` (which honour extra_seed)
+    extra_trees: bool = False
+    # feature_contri gain factors (grow_tree's `contri` argument)
+    has_contri: bool = False
 
     @property
     def cat_words(self) -> int:
@@ -127,7 +171,11 @@ class GrowConfig:
             max_cat_to_onehot=self.max_cat_to_onehot,
             min_data_per_group=self.min_data_per_group,
             has_monotone=self.has_monotone,
-            monotone_penalty=self.monotone_penalty)
+            monotone_penalty=self.monotone_penalty,
+            has_cegb=self.has_cegb, cegb_tradeoff=self.cegb_tradeoff,
+            cegb_penalty_split=self.cegb_penalty_split,
+            path_smooth=self.path_smooth, extra_trees=self.extra_trees,
+            has_contri=self.has_contri)
 
 
 class BundleMaps(NamedTuple):
@@ -324,6 +372,154 @@ def _apply_splits(leaf_vec: torch.Tensor, bins_t: torch.Tensor,
     return torch.where(sel & ~goes_left, new_ids[ln], leaf_vec)
 
 
+class ForcedSplits(NamedTuple):
+    """The preorder forced-split table (parents before children) that
+    ``grow_tree`` applies at the top of every tree, as host arrays ``[M]``:
+    ``parent`` (-1 at the root entry), ``is_left``, ``feature`` (a used
+    feature), ``threshold_bin``, ``is_cat``, and ``bitset`` ``[M, W]``
+    (int64 words holding a categorical entry's uint32 left set over
+    bins)."""
+
+    parent: np.ndarray
+    is_left: np.ndarray
+    feature: np.ndarray
+    threshold_bin: np.ndarray
+    is_cat: np.ndarray
+    bitset: np.ndarray
+
+
+class _ForcedRounds:
+    """A forced-split table's state within one tree (the JAX package's
+    ``forced_target``), on the host, where each round's leaf choice is
+    read anyway: each entry is -1 while its parent waits, then its target
+    leaf (>= 0), then -3 once applied or -2 once skipped (an entry whose
+    child would get no rows or that ``max_depth`` stops, and with it its
+    subtree)."""
+
+    def __init__(self, forced: ForcedSplits, num_bins: int,
+                 device: torch.device):
+        self.f = forced
+        self.parent = np.asarray(forced.parent, np.int64)
+        self.target = np.where(self.parent < 0, 0, -1).astype(np.int64)
+        self.bitset = torch.as_tensor(np.asarray(forced.bitset, np.int64),
+                                      device=device)
+        self.bin_ax = torch.arange(num_bins, dtype=torch.int32,
+                                   device=device)[None, :]
+        self.device = device
+
+    def pending(self) -> bool:
+        return bool(((self.target == -1) | (self.target >= 0)).any())
+
+    def lanes(self, Kb: int, leaf_hist: torch.Tensor, leaf_sums: torch.Tensor,
+              leaf_depth: torch.Tensor, num_bin: torch.Tensor,
+              has_nan: torch.Tensor, max_depth: int):
+        """A forced round: the ready entries' target leaves in leaf order,
+        one a lane, and no other leaf. Returns the lanes' leaves ``[Kb]``
+        (-1 on free lanes), which lanes apply their entry (host bool
+        ``[Kb]``: both children get rows, under ``max_depth``; one host
+        read), and the entries' splits on the device: ``feature``,
+        ``threshold``, ``is_cat``, ``bitset`` and the child sums
+        ``lsums`` / ``rsums`` (from the target leaves' histograms) and
+        ``psums``."""
+        f, dev = self.f, self.device
+        ready = self.target >= 0
+        leaves = np.sort(self.target[ready])[:Kb]
+        top_leaf = np.full(Kb, -1, np.int64)
+        top_leaf[:len(leaves)] = leaves
+        self.lane_match = ((top_leaf[:, None] == self.target[None, :])
+                           & ready[None, :])                    # [Kb, M]
+        self.flane = self.lane_match.any(axis=1)
+        ent = np.where(self.flane, self.lane_match.argmax(axis=1), 0)
+        fl = torch.as_tensor(self.flane, device=dev)
+        feat = torch.as_tensor(np.where(self.flane, f.feature[ent], 0),
+                               dtype=torch.int64, device=dev)
+        thr = torch.as_tensor(np.where(self.flane, f.threshold_bin[ent], 0)
+                              .astype(np.int32), device=dev)
+        is_cat = torch.as_tensor(self.flane & f.is_cat[ent], device=dev)
+        bitset = torch.where(fl[:, None], self.bitset[torch.as_tensor(
+            ent, device=dev)], 0)
+        tl = torch.as_tensor(top_leaf, device=dev).clamp(min=0)
+        bin_ax = self.bin_ax
+        col = leaf_hist[tl, feat]                              # [Kb, B, 3]
+        nb = num_bin[feat]
+        nan_bin = has_nan[feat][:, None] & (bin_ax == nb[:, None] - 1)
+        word = torch.gather(bitset, 1, (bin_ax >> 5).to(torch.int64).expand(
+            Kb, bin_ax.shape[1]))
+        cat_left = ((word >> (bin_ax & 31).to(torch.int64)) & 1) > 0
+        left = torch.where(is_cat[:, None], cat_left,
+                           (bin_ax <= thr[:, None]) & ~nan_bin) \
+            & (bin_ax < nb[:, None])
+        lsums = sum_bins((col * left[:, :, None].to(torch.float32))[None])[0]
+        psums = leaf_sums[tl]
+        rsums = psums - lsums
+        chk = torch.stack([lsums[:, 2], rsums[:, 2],
+                           leaf_depth[tl].to(torch.float32)], dim=1)
+        chk = chk.cpu().numpy()
+        applied = self.flane & (chk[:, 0] > 0) & (chk[:, 1] > 0)
+        if max_depth > 0:
+            applied &= chk[:, 2] < max_depth
+        return top_leaf, applied, dict(
+            feature=feat.to(torch.int32), threshold=thr, is_cat=is_cat,
+            bitset=bitset, lsums=lsums, rsums=rsums, psums=psums, lane=fl)
+
+    def advance(self, applied: np.ndarray, tl: np.ndarray, new: np.ndarray
+                ) -> None:
+        """The entries' next states after a forced round whose lanes split
+        leaves ``tl`` into ``tl`` (left) and ``new`` (right) where
+        ``applied``: the lanes' entries applied or skipped, and the
+        children of applied entries given their target leaves."""
+        t, parent = self.target, self.parent
+        sel = self.lane_match & applied[:, None]
+        applied_e = sel.any(axis=0)
+        skipped = (self.lane_match & self.flane[:, None]).any(axis=0) \
+            & ~applied_e
+        fp = np.clip(parent, 0, len(parent) - 1)
+        pm = sel[:, fp]                                        # [Kb, M]
+        child = np.where(self.f.is_left,
+                         np.where(pm, tl[:, None], 0).sum(axis=0),
+                         np.where(pm, new[:, None], 0).sum(axis=0))
+        resolved = pm.any(axis=0) & (parent >= 0)
+        dead = (parent >= 0) & (skipped[fp] | (t[fp] == -2))
+        self.target = np.where(
+            applied_e, -3, np.where(skipped, -2, np.where(
+                t == -1, np.where(resolved, child, np.where(dead, -2, -1)),
+                t)))
+
+
+def bynode_mask(allow: torch.Tensor, u: torch.Tensor,
+                frac: float) -> torch.Tensor:
+    """Per-node column sampling (``ColSampler`` ``feature_fraction_bynode``,
+    the JAX package's ``bynode_mask``): of each row of ``allow`` ``[C, F]``
+    keep exactly ``ceil(frac * n_allowed)`` features, those with the
+    smallest uniforms ``u`` ``[C, F]``. ``k`` is rounded up in float32."""
+    F = allow.shape[1]
+    uu = torch.where(allow, u, float("inf"))
+    n_allow = allow.sum(dim=1).to(torch.float32)
+    k_idx = (torch.ceil(round_f32(frac) * n_allow).to(torch.int64) - 1).clamp(
+        0, F - 1)
+    kth = torch.gather(torch.sort(uu, dim=1).values, 1, k_idx[:, None])
+    return allow & (uu <= kth)
+
+
+def lazy_counts(leaf_vec: torch.Tensor, not_acq: torch.Tensor,
+                n_slots: int) -> torch.Tensor:
+    """Rows of each leaf slot that never acquired each feature: ``[n_slots,
+    F]`` float32 from the per-row leaf ids ``leaf_vec`` ``[n]`` and the 0/1
+    ``not_acq`` ``[n, F]`` float32 (the JAX package's membership product,
+    exact below 2^24 rows a leaf)."""
+    out = torch.zeros((n_slots, not_acq.shape[1]), dtype=torch.float32,
+                      device=not_acq.device)
+    return out.index_add_(0, leaf_vec.to(torch.int64), not_acq)
+
+
+def acquire(U: torch.Tensor, leaf_used: torch.Tensor, leaf_id: torch.Tensor,
+            in_sample: torch.Tensor) -> torch.Tensor:
+    """Lazy CEGB's acquisition fold after one tree (the JAX package's
+    ``_cegb_u_fold``): every in-sample row acquires the features on its
+    leaf's path, ``U [n, F] |= leaf_used [L, F][leaf_id] & in_sample``."""
+    return U | (leaf_used[leaf_id.to(torch.int64)] & in_sample[:, None])
+
+
 def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
               feat_num_bin: torch.Tensor, feat_has_nan: torch.Tensor,
               allowed_feature: torch.Tensor, cfg: GrowConfig,
@@ -331,7 +527,16 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
               compact_bins_t: Optional[torch.Tensor] = None,
               is_cat: Optional[torch.Tensor] = None,
               bundle: Optional[BundleMaps] = None,
-              mono: Optional[torch.Tensor] = None
+              mono: Optional[torch.Tensor] = None,
+              groups: Optional[torch.Tensor] = None,
+              cegb_pen: Optional[torch.Tensor] = None,
+              contri: Optional[torch.Tensor] = None,
+              lazy: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              forced: Optional[ForcedSplits] = None,
+              node_draws: Optional[Callable[[int, int], torch.Tensor]]
+              = None,
+              extra_draws: Optional[Callable[[int, int], torch.Tensor]]
+              = None
               ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Grow one tree.
 
@@ -356,21 +561,38 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         ``allowed_feature``, ``is_cat`` and the tree arrays stay logical.
       mono: ``[F]`` int8 monotone directions in {-1, 0, +1} of the
         logical features; read only when ``cfg.has_monotone``.
+      groups: ``[G, F]`` bool interaction-constraint groups; read only
+        with ``cfg.has_interaction``.
+      cegb_pen: ``[F]`` float32 coupled CEGB penalties (0 for features
+        the model uses); read only with ``cfg.has_cegb``.
+      contri: ``[F]`` float32 gain factors; read only with
+        ``cfg.has_contri``.
+      lazy: ``(U, penalty)`` — the ``[n, F]`` bool features each row has
+        acquired (rows outside the sample count as acquired) and the
+        ``[F]`` float32 lazy penalties; read only with
+        ``cfg.has_cegb_lazy``.
+      forced: the forced-split table; read only with ``cfg.n_forced``.
+      node_draws / extra_draws: ``(tag, C) -> [C, F]`` float32 uniforms of
+        one search of C leaves (tag ``L + 7`` at the root, else the
+        round's first node index) for ``feature_fraction_bynode`` and
+        ``extra_trees``; the options are off without them.
 
     Returns:
       (tree dict of fixed-size arrays + ``num_leaves`` + ``hist_rows``,
       per-row leaf_id ``[n]`` int32) — the same arrays as the JAX
       package's grow_tree; with ``cfg.has_categorical`` also ``is_cat``
       ``[L-1]`` and ``cat_bitset`` ``[L-1, W]`` (int64 words holding the
-      uint32 bit patterns). ``hist_rows`` (a host ``np.float32``, summed
-      in float32 like the JAX package's) counts the rows the histogram
-      scans touched: the source's n once per scan on the masked path,
-      the padded spans under the partition.
+      uint32 bit patterns); with ``cfg.has_cegb_lazy`` also ``leaf_used``
+      ``[L, F]``, the features on each leaf's path. ``hist_rows`` (a host
+      ``np.float32``, summed in float32 like the JAX package's) counts the
+      rows the histogram scans touched: the source's n once per scan on
+      the masked path, the padded spans under the partition.
     """
     dev = bins_t.device
     n_rows = bins_t.shape[1]
     L = cfg.num_leaves
     B = cfg.num_bins
+    F = feat_num_bin.shape[0]
     Kb = max(1, min(cfg.leaf_batch, L))
     i32, f32 = torch.int32, torch.float32
     scfg = cfg.split_config
@@ -402,18 +624,60 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
     inter = monotone and cfg.monotone_intermediate
     basic = monotone and not inter
     penalized = monotone and cfg.monotone_penalty > 0.0
+    if not cfg.has_interaction:
+        groups = None
+    if not cfg.has_cegb:
+        cegb_pen = None
+    if not cfg.has_contri:
+        contri = None
+    if not cfg.has_cegb_lazy:
+        lazy = None
+    if cfg.feature_fraction_bynode >= 1.0:
+        node_draws = None
+    if not cfg.extra_trees:
+        extra_draws = None
+    if cfg.n_forced <= 0:
+        forced = None
+    smooth = cfg.path_smooth > 0.0
+    track_used = groups is not None or lazy is not None
+    if lazy is not None:
+        not_acq = (~lazy[0]).to(f32)
+        lazy_pen = lazy[1]
 
-    def search_best(hists, sums, lowers=None, uppers=None, depths=None):
+        def lazy_rows(child_ids, leaf_vec, pathf=None):
+            # [C] leaf slots -> [C, F]: the rows of the child that never
+            # acquired the feature (search_best scales them by the
+            # penalty); features already on the child's path this tree
+            # cost nothing
+            cnt = lazy_counts(leaf_vec, not_acq, L + 1)[child_ids]
+            if pathf is not None:
+                cnt = cnt * (1.0 - pathf.to(f32))
+            return cnt
+
+    def search_best(hists, sums, lowers=None, uppers=None, depths=None,
+                    allows=None, parent_outs=None, round_tag=0, lazy_cnt=None):
         if bundle is not None:
             hists = expand_hist(hists, sums, bundle)
         extra = {}
         if monotone:
             extra = dict(mono=mono, out_lower=lowers, out_upper=uppers,
                          depth=depths)
+        if lazy_cnt is not None:
+            # the lazy penalty's product fused into the sum with the
+            # coupled one, as XLA's CPU backend contracts it
+            extra["cegb_pen"] = (
+                lazy_cnt * lazy_pen[None, :] if cegb_pen is None
+                else fma(lazy_cnt, lazy_pen[None, :], cegb_pen[None, :]))
+        elif cegb_pen is not None:
+            extra["cegb_pen"] = cegb_pen[None, :].expand(
+                hists.shape[0], F)
+        if extra_draws is not None:
+            extra["extra_u"] = extra_draws(round_tag, hists.shape[0])
         return find_best_split(hists, sums, feat_num_bin, feat_has_nan,
-                               allowed_feature, scfg,
-                               is_cat=is_cat if categorical else None,
-                               cat_idx=cat_idx, **extra)
+                               allowed_feature if allows is None else allows,
+                               scfg, is_cat=is_cat if categorical else None,
+                               cat_idx=cat_idx, parent_out=parent_outs,
+                               contri=contri, **extra)
 
     # ---- root ----------------------------------------------------------
     leaf_id = torch.zeros(n_rows, dtype=i32, device=dev)
@@ -422,19 +686,37 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
     root_small[0] = 0
     root_hist = hist_multi(leaf_id_c if compact else leaf_id,
                            root_small)[0]
-    root_sums = vals.sum(dim=0)
     if chan_scale is not None:
-        root_sums = root_sums * chan_scale
-    root_bounds = {}
+        # integer levels: exact in any order
+        root_sums = vals.sum(dim=0) * chan_scale
+    else:
+        # float32 values: in XLA's order of the JAX package's jnp.sum, the
+        # same bits on the card and the CPU (torch.sum adds in another
+        # order on each, and the ULP lands in every right-hand leaf's sums)
+        root_sums = sum_bins(vals.T[None])[0]
+    root_opts = {}
     if monotone:
         # the root's output range is unbounded
-        root_bounds = dict(
+        root_opts = dict(
             lowers=torch.full((1,), float("-inf"), device=dev),
             uppers=torch.full((1,), float("inf"), device=dev))
+    if penalized:
+        root_opts["depths"] = torch.zeros(1, dtype=i32, device=dev)
+    # features in no interaction group are never used
+    root_allow = (groups.any(dim=0) & allowed_feature)[None] \
+        if groups is not None else None
+    if node_draws is not None:
+        base = (root_allow if root_allow is not None
+                else allowed_feature[None])
+        root_allow = bynode_mask(base, node_draws(L + 7, 1),
+                                 cfg.feature_fraction_bynode)
     root_best = search_best(
-        root_hist[None], root_sums[None],
-        depths=torch.zeros(1, dtype=i32, device=dev) if penalized else None,
-        **root_bounds)
+        root_hist[None], root_sums[None], allows=root_allow,
+        parent_outs=leaf_out(root_sums)[None] if smooth else None,
+        round_tag=L + 7,
+        lazy_cnt=(lazy_rows(torch.zeros(1, dtype=torch.int64, device=dev),
+                        leaf_id) if lazy is not None else None),
+        **root_opts)
 
     leaf_hist = torch.zeros((L + 1,) + tuple(root_hist.shape), dtype=f32,
                             device=dev)
@@ -481,6 +763,11 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         # membership of each leaf in the left / right subtree of each node
         mono_left = torch.zeros((L, L + 1), dtype=torch.bool, device=dev)
         mono_right = torch.zeros((L, L + 1), dtype=torch.bool, device=dev)
+    if track_used:
+        # the features on each leaf's path
+        leaf_used = torch.zeros((L + 1, F), dtype=torch.bool, device=dev)
+    rounds_f = _ForcedRounds(forced, B, dev) if forced is not None \
+        else None
 
     # ---- leaf-ordered row partition (cfg.partition) -------------------
     # the source's rows start as one span (the root); each round moves
@@ -502,23 +789,48 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
     lanes = np.arange(Kb)
     split_idx, num_leaves = 0, 1
 
-    while split_idx < L - 1:
-        gains = torch.where(
-            torch.arange(L + 1, device=dev) < num_leaves, best_gain, NEG_INF)
+    def dev_i(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+    def masked_gains():
+        gains = torch.where(torch.arange(L + 1, device=dev) < num_leaves,
+                            best_gain, NEG_INF)
         if cfg.max_depth > 0:
             gains = torch.where(leaf_depth < cfg.max_depth, gains, NEG_INF)
-        top_gain_h, top_leaf_h = _top_leaves(gains, Kb)     # the host sync
-        valid_h = np.isfinite(top_gain_h) & (lanes < (L - 1) - split_idx)
+        return gains
+
+    while split_idx < L - 1:
+        remaining = (L - 1) - split_idx
+        # while forced entries remain, only their target leaves split
+        in_forced = rounds_f is not None and rounds_f.pending()
+        if in_forced:
+            top_leaf_h, applied_h, fsplit = rounds_f.lanes(
+                Kb, leaf_hist, leaf_sums, leaf_depth, feat_num_bin,
+                feat_has_nan, cfg.max_depth)
+            valid_h = applied_h & (lanes < remaining)
+            top_gain_h = np.zeros(Kb, np.float32)
+        else:
+            # the host sync
+            top_gain_h, top_leaf_h = _top_leaves(masked_gains(), Kb)
+            valid_h = np.isfinite(top_gain_h) & (lanes < remaining)
         nv = int(valid_h.sum())
-        if nv == 0:
-            break
         rank = np.cumsum(valid_h) - 1
         node_h = np.where(valid_h, split_idx + rank, node_trash)
         new_h = np.where(valid_h, num_leaves + rank, leaf_trash)
         tl_h = np.where(valid_h, top_leaf_h, leaf_trash)
-
-        def dev_i(a):
-            return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+        if in_forced:
+            rounds_f.advance(applied_h, tl_h, new_h)
+        if nv == 0:
+            if not in_forced:
+                break
+            # a forced round that split nothing (every entry skipped):
+            # the JAX package still scans once
+            rows_scanned = np.float32(rows_scanned + np.float32(
+                Kb * budgets[0] if cfg.partition and budgets else n_h))
+            if rounds_f.pending() or bool(
+                    torch.isfinite(masked_gains()).any()):
+                continue
+            break
 
         valid = torch.as_tensor(valid_h, device=dev)
         node_ids, new_ids, tl_safe = dev_i(node_h), dev_i(new_h), dev_i(tl_h)
@@ -534,6 +846,25 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         if categorical:
             cat_sel = best_is_cat[tl_safe]
             bs_sel = best_cat_bitset[tl_safe]
+        if in_forced:
+            # the forced entries' splits on their lanes, recorded with the
+            # plain leaf gain of their children
+            fl = fsplit["lane"]
+            feat_sel = torch.where(fl, fsplit["feature"], feat_sel)
+            thr_sel = torch.where(fl, fsplit["threshold"], thr_sel)
+            dl_sel = dl_sel & ~fl
+            lsums = torch.where(fl[:, None], fsplit["lsums"], lsums)
+            rsums = torch.where(fl[:, None], fsplit["rsums"], rsums)
+            def gain_of(sums):
+                return leaf_gain(sums[:, 0], sums[:, 1], cfg.lambda_l1,
+                                 cfg.lambda_l2)
+            top_gain = torch.where(
+                fl, gain_of(fsplit["lsums"]) + gain_of(fsplit["rsums"])
+                - gain_of(fsplit["psums"]), top_gain)
+            if categorical:
+                cat_sel = torch.where(fl, fsplit["is_cat"], cat_sel)
+                bs_sel = torch.where(fl[:, None], fsplit["bitset"], bs_sel)
+        if categorical:
             route = dict(cat=cat_sel, bitset=bs_sel)
         route["bundle"] = bundle
 
@@ -610,6 +941,14 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
             lvals = torch.where(cat_sel, leaf_out(lsums, l2c), lvals)
             rvals = torch.where(cat_sel, leaf_out(rsums, l2c), rvals)
         psums = leaf_sums[tl_safe]
+        if smooth:
+            # the children shrink toward the split leaf's stored output,
+            # before any monotone clip
+            pvals = leaf_vcw[tl_safe, 0]
+            lvals = smooth_output(lvals, lsums[:, 2], pvals, cfg.path_smooth,
+                                  fused="parent")
+            rvals = smooth_output(rvals, rsums[:, 2], pvals, cfg.path_smooth,
+                                  fused="parent")
 
         # ---- constraint propagation (monotone_constraints.hpp) ---------
         child_lower = child_upper = None
@@ -637,6 +976,25 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
             hi_r = torch.where(m_k < 0, torch.minimum(phi, bound_r), phi)
             child_lower = torch.cat([lo_l, lo_r])
             child_upper = torch.cat([hi_l, hi_r])
+        # ---- the children's allowed features ---------------------------
+        child_allow = None
+        if track_used:
+            # only lanes that split extend their path set
+            used_k = leaf_used[tl_safe] | (
+                (feat_sel.to(torch.int64)[:, None]
+                 == torch.arange(F, device=dev)[None, :]) & valid[:, None])
+            child_used = torch.cat([used_k, used_k])
+        if groups is not None:
+            # a group is usable iff it holds every feature on the path
+            viol = (used_k[:, None, :] & ~groups[None]).any(dim=2)  # [Kb, G]
+            allow_k = (groups[None] & ~viol[:, :, None]).any(dim=1) \
+                & allowed_feature[None]
+            child_allow = torch.cat([allow_k, allow_k])
+        if node_draws is not None:
+            base = (child_allow if child_allow is not None
+                    else allowed_feature[None].expand(2 * Kb, F))
+            child_allow = bynode_mask(base, node_draws(split_idx, 2 * Kb),
+                                      cfg.feature_fraction_bynode)
         if inter:
             # children inherit the split leaf's memberships, then join
             # the new node's two sides
@@ -647,10 +1005,14 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
 
         # ---- best splits for all 2*Kb children -------------------------
         child_sums = torch.cat([lsums, rsums])
-        bests = search_best(torch.cat([left_hist, right_hist]), child_sums,
-                            child_lower, child_upper,
-                            torch.cat([depth2, depth2]) if penalized
-                            else None)
+        bests = search_best(
+            torch.cat([left_hist, right_hist]), child_sums, child_lower,
+            child_upper, torch.cat([depth2, depth2]) if penalized else None,
+            allows=child_allow,
+            parent_outs=torch.cat([lvals, rvals]) if smooth else None,
+            round_tag=split_idx,
+            lazy_cnt=(lazy_rows(ids2, leaf_id, child_used) if lazy is not None
+                  else None))
 
         # ---- tree wiring -----------------------------------------------
         left_child[node_ids] = (-top_leaf - 1).to(i32)
@@ -670,6 +1032,8 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         if basic:
             leaf_bounds[ids2] = torch.stack([child_lower, child_upper],
                                             dim=1)
+        if track_used:
+            leaf_used[ids2] = child_used
         best_gain[ids2] = bests["gain"]
         best_feature[ids2] = bests["feature"]
         best_threshold[ids2] = bests["threshold_bin"]
@@ -685,7 +1049,8 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         threshold_bin[node_ids] = thr_sel
         default_left[node_ids] = dl_sel
         node_vcg[node_ids] = torch.stack(
-            [leaf_out(psums), psums[:, 2], top_gain], dim=1)
+            [leaf_vcw[tl_safe, 0] if smooth else leaf_out(psums),
+             psums[:, 2], top_gain], dim=1)
         leaf_vcw[ids2] = torch.stack(
             [torch.cat([lvals, rvals]), child_sums[:, 2], child_sums[:, 1]],
             dim=1)
@@ -717,4 +1082,7 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
         # (and its model text) stay as they were
         tree["is_cat"] = node_is_cat[:nn]
         tree["cat_bitset"] = node_cat_bitset[:nn]
+    if lazy is not None:
+        # the engine folds these into the rows' acquired features
+        tree["leaf_used"] = leaf_used[:L]
     return tree, leaf_id

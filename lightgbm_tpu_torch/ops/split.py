@@ -25,8 +25,13 @@ the gains are the same element-wise expressions. Monotone constraints
 leaf's inherited range, take the gains at the clipped outputs, veto the
 thresholds whose outputs break the feature's direction, and scale the
 gains of constrained features by ``monotone_penalty``'s depth factor
-after the validity check. CEGB, path-smoothing, extra-trees and
-feature-contribution variants are not ported yet.
+after the validity check. Path smoothing (``path_smooth``) shrinks every
+candidate output toward the leaf's parent output before the clip;
+``extra_trees`` keeps one threshold per numerical feature, drawn from a
+uniform per (leaf, feature); ``feature_contri`` scales the valid gains of
+each feature; CEGB subtracts ``cegb_tradeoff * cegb_penalty_split *
+count`` plus a per-feature penalty (coupled and lazy) from every
+candidate and drops those that no longer clear ``min_gain_to_split``.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from typing import Dict, Optional
 
 import torch
 
-from ..utils.fp import fma
+from ..utils.fp import f32, fma
 
 NEG_INF = float("-inf")
 
@@ -97,6 +102,21 @@ class SplitConfig:
     # ComputeMonotoneSplitGainPenalty: gains of splits on constrained
     # features scale by a depth factor < 1 (find_best_split's `depth`)
     monotone_penalty: float = 0.0
+    # CEGB (cost_effective_gradient_boosting.hpp): every candidate's gain
+    # loses cegb_tradeoff * cegb_penalty_split * count and the feature's
+    # penalty (find_best_split's `cegb_pen`)
+    has_cegb: bool = False
+    cegb_tradeoff: float = 1.0
+    cegb_penalty_split: float = 0.0
+    # path smoothing: candidate outputs shrink toward the leaf's parent
+    # output by n / (n + path_smooth) (find_best_split's `parent_out`)
+    path_smooth: float = 0.0
+    # extra_trees: one threshold per numerical feature, picked by a
+    # uniform (find_best_split's `extra_u`)
+    extra_trees: bool = False
+    # feature_contri: per-feature gain factors (find_best_split's
+    # `contri`)
+    has_contri: bool = False
 
 
 def threshold_l1(s: torch.Tensor, l1: float) -> torch.Tensor:
@@ -137,6 +157,22 @@ def leaf_gain_at_output(sum_g: torch.Tensor, sum_h: torch.Tensor, l1: float,
     return -fma(2.0 * t, output, (sum_h + l2) * output * output)
 
 
+def smooth_output(raw: torch.Tensor, count: torch.Tensor,
+                  parent_out: torch.Tensor, alpha: float,
+                  fused: str = "raw") -> torch.Tensor:
+    """Path smoothing (``USE_SMOOTHING``): ``raw * n/(n+alpha) +
+    parent_out * alpha/(n+alpha)``, as ``raw * w + parent_out * (1 - w)``
+    with one of the two products fused into the sum, as XLA's CPU backend
+    contracts it, which depends on the fusion: ``fused="raw"`` rounds
+    ``parent_out * (1 - w)`` first (the function jitted alone, and the
+    leaf's own output in the split search), ``"parent"`` rounds ``raw *
+    w`` first (the split search's candidate children)."""
+    w = count / (count + alpha)
+    if fused == "raw":
+        return fma(raw, w, parent_out * (1.0 - w))
+    return fma(parent_out * torch.ones_like(w), 1.0 - w, raw * w)
+
+
 def monotone_penalty_factor(depth: torch.Tensor,
                             penalization: float) -> torch.Tensor:
     """Gain factor of splits on constrained features at ``depth``
@@ -161,7 +197,8 @@ def clip(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
 
 def _numerical_candidates(hist, parent_sums, num_bin, has_nan, num_allowed,
                           cfg: SplitConfig, mono=None, out_lower=None,
-                          out_upper=None, depth=None):
+                          out_upper=None, depth=None, parent_out=None,
+                          extra_u=None, contri=None):
     """Threshold-scan gains ``[..., F, B, 2]`` and left sums
     ``[..., F, B, 2, 3]`` — dir 0: missing right, dir 1: missing left.
 
@@ -169,7 +206,10 @@ def _numerical_candidates(hist, parent_sums, num_bin, has_nan, num_allowed,
     ``[F]``, num_allowed ``[..., F]`` (or ``[F]``). With
     ``cfg.has_monotone``: ``mono`` ``[F]`` in {-1, 0, +1} and the leaves'
     output ranges ``out_lower`` / ``out_upper`` ``[...]``; with
-    ``cfg.monotone_penalty`` also ``depth`` ``[...]``."""
+    ``cfg.monotone_penalty`` also ``depth`` ``[...]``. With
+    ``cfg.path_smooth``: the leaves' parent outputs ``parent_out``
+    ``[...]``; with ``cfg.extra_trees``: ``extra_u`` ``[..., F]``
+    uniforms; with ``cfg.has_contri``: ``contri`` ``[F]``."""
     B = hist.shape[-2]
     dev = hist.device
     bin_idx = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
@@ -187,24 +227,31 @@ def _numerical_candidates(hist, parent_sums, num_bin, has_nan, num_allowed,
     rg, rh, rc = right[..., 0], right[..., 1], right[..., 2]
 
     use_mono = cfg.has_monotone and mono is not None
-    if use_mono:
+    use_smooth = cfg.path_smooth > 0.0 and parent_out is not None
+    if use_mono or use_smooth:
         l1, l2, mds = cfg.lambda_l1, cfg.lambda_l2, cfg.max_delta_step
-        lo = out_lower[..., None, None, None]
-        hi = out_upper[..., None, None, None]
-        l_out = clip(calc_leaf_output(lg, lh, l1, l2, mds), lo, hi)
-        r_out = clip(calc_leaf_output(rg, rh, l1, l2, mds), lo, hi)
-        # the parent's gain is taken at its clipped output too
-        p_out = clip(calc_leaf_output(parent_sums[..., 0],
-                                       parent_sums[..., 1], l1, l2, mds),
-                      out_lower, out_upper)
+        l_out = calc_leaf_output(lg, lh, l1, l2, mds)
+        r_out = calc_leaf_output(rg, rh, l1, l2, mds)
+        p_out = calc_leaf_output(parent_sums[..., 0], parent_sums[..., 1],
+                                 l1, l2, mds)
+        if use_smooth:
+            a = cfg.path_smooth
+            po = parent_out[..., None, None, None]
+            l_out = smooth_output(l_out, lc, po, a, fused="parent")
+            r_out = smooth_output(r_out, rc, po, a, fused="parent")
+            p_out = smooth_output(p_out, parent_sums[..., 2], parent_out, a)
+        if use_mono:
+            # the parent's gain is taken at its clipped output too
+            lo = out_lower[..., None, None, None]
+            hi = out_upper[..., None, None, None]
+            l_out = clip(l_out, lo, hi)
+            r_out = clip(r_out, lo, hi)
+            p_out = clip(p_out, out_lower, out_upper)
         parent_gain = leaf_gain_at_output(parent_sums[..., 0],
                                           parent_sums[..., 1], l1, l2, p_out)
         gain = (leaf_gain_at_output(lg, lh, l1, l2, l_out)
                 + leaf_gain_at_output(rg, rh, l1, l2, r_out)
                 - parent_gain[..., None, None, None])
-        # +1 (increasing): the left output must not exceed the right
-        violates = (mono[:, None, None].to(torch.float32)
-                    * (l_out - r_out)) > 0
     else:
         parent_gain = leaf_gain(parent_sums[..., 0], parent_sums[..., 1],
                                 cfg.lambda_l1, cfg.lambda_l2)
@@ -224,7 +271,18 @@ def _numerical_candidates(hist, parent_sums, num_bin, has_nan, num_allowed,
              & (rh >= cfg.min_sum_hessian_in_leaf)
              & (gain > cfg.min_gain_to_split))
     if use_mono:
-        valid = valid & ~violates
+        # +1 (increasing): the left output must not exceed the right
+        valid = valid & ~((mono[:, None, None].to(torch.float32)
+                           * (l_out - r_out)) > 0)
+    if cfg.extra_trees and extra_u is not None:
+        # one threshold per feature, below num_bin - 1 whether or not the
+        # last bin is the NaN bin
+        t_extra = (extra_u * (num_bin - 1).to(torch.float32)
+                   ).to(torch.int32)                          # [..., F]
+        valid = valid & (bin_idx == t_extra[..., None])[..., None]
+    if cfg.has_contri and contri is not None:
+        # after the validity check, which sees the unscaled gain
+        gain = gain * contri[:, None, None]
     if cfg.monotone_penalty > 0.0 and use_mono and depth is not None:
         # after the validity check, as the reference scales the gain
         # found by FindBestThreshold
@@ -249,7 +307,8 @@ def _pack_bitset(inset: torch.Tensor) -> torch.Tensor:
 
 
 def _categorical_candidates(hist, parent_sums, num_bin, cat_allowed,
-                            cfg: SplitConfig, out_lower=None, out_upper=None):
+                            cfg: SplitConfig, out_lower=None, out_upper=None,
+                            parent_out=None, contri=None, cegb_pen=None):
     """Candidate categorical gains ``[..., Fc, 3, B]`` over the modes
     (one-hot, sorted ascending, sorted descending), the two sort orders
     ``[..., Fc, 2, B]``, the sorted prefix sums ``[..., Fc, 2, B, 3]`` and
@@ -260,7 +319,11 @@ def _categorical_candidates(hist, parent_sums, num_bin, cat_allowed,
     allowed in this leaf. Bin 0 (NaN and unseen categories) never enters
     a left set. With monotone bounds (``out_lower`` / ``out_upper``
     ``[...]``) the gains are taken at outputs clipped to the leaves'
-    ranges, as on the numerical scan; the features carry no direction."""
+    ranges, as on the numerical scan; the features carry no direction.
+    ``parent_out`` ``[...]`` smooths the outputs (``cfg.path_smooth``),
+    ``contri`` ``[Fc]`` scales the finite gains (``cfg.has_contri``) and
+    ``cegb_pen`` ``[..., Fc]`` adds to CEGB's split penalty
+    (``cfg.has_cegb``), before the argmax."""
     B = hist.shape[-2]
     dev = hist.device
     bin_idx = torch.arange(B, dtype=torch.int32, device=dev)
@@ -269,9 +332,13 @@ def _categorical_candidates(hist, parent_sums, num_bin, cat_allowed,
     pg, ph, pc = (parent_sums[..., i] for i in range(3))
     mds = cfg.max_delta_step
     bounded = cfg.has_monotone and out_lower is not None
-    if bounded:
-        p_out = clip(calc_leaf_output(pg, ph, l1, l2c, mds), out_lower,
-                      out_upper)
+    smoothed = cfg.path_smooth > 0.0 and parent_out is not None
+    if bounded or smoothed:
+        p_out = calc_leaf_output(pg, ph, l1, l2c, mds)
+        if smoothed:
+            p_out = smooth_output(p_out, pc, parent_out, cfg.path_smooth)
+        if bounded:
+            p_out = clip(p_out, out_lower, out_upper)
         parent_gain = leaf_gain_at_output(pg, ph, l1, l2c, p_out)
     else:
         parent_gain = leaf_gain(pg, ph, l1, l2c)
@@ -284,10 +351,19 @@ def _categorical_candidates(hist, parent_sums, num_bin, cat_allowed,
         def p(a):
             return a.reshape(a.shape + (1,) * extra_dims)
         rg, rh, rc = p(pg) - lg, p(ph) - lh, p(pc) - lc
-        if bounded:
-            lo, hi = p(out_lower), p(out_upper)
-            lo_out = clip(calc_leaf_output(lg, lh, l1, l2c, mds), lo, hi)
-            ro_out = clip(calc_leaf_output(rg, rh, l1, l2c, mds), lo, hi)
+        if bounded or smoothed:
+            lo_out = calc_leaf_output(lg, lh, l1, l2c, mds)
+            ro_out = calc_leaf_output(rg, rh, l1, l2c, mds)
+            if smoothed:
+                po = p(parent_out)
+                lo_out = smooth_output(lo_out, lc, po, cfg.path_smooth,
+                                       fused="parent")
+                ro_out = smooth_output(ro_out, rc, po, cfg.path_smooth,
+                                       fused="parent")
+            if bounded:
+                lo, hi = p(out_lower), p(out_upper)
+                lo_out = clip(lo_out, lo, hi)
+                ro_out = clip(ro_out, lo, hi)
             g = (leaf_gain_at_output(lg, lh, l1, l2c, lo_out)
                  + leaf_gain_at_output(rg, rh, l1, l2c, ro_out)
                  - p(parent_gain))
@@ -328,11 +404,36 @@ def _categorical_candidates(hist, parent_sums, num_bin, cat_allowed,
         & ~use_onehot[:, None, None] & cat_allowed[..., None, None],
         gain_sorted, NEG_INF)                                 # [..., Fc, 2, B]
     all_gain = torch.cat([gain_oh.unsqueeze(-2), gain_sorted], dim=-2)
+    if cfg.has_contri and contri is not None:
+        all_gain = torch.where(torch.isfinite(all_gain),
+                               all_gain * contri[:, None, None], all_gain)
+    if cfg.has_cegb:
+        # penalized before the argmax, as on the numerical scan
+        all_gain = all_gain - _cegb_penalty(cfg, pc, cegb_pen)[
+            ..., None, None]
+        all_gain = torch.where(all_gain > cfg.min_gain_to_split, all_gain,
+                               NEG_INF)
     return all_gain, orders, cum, valid_bin
 
 
+def _cegb_penalty(cfg: SplitConfig, count: torch.Tensor,
+                  cegb_pen: Optional[torch.Tensor],
+                  fused: bool = True) -> torch.Tensor:
+    """CEGB's penalty of splitting leaves of ``count`` ``[...]`` rows:
+    ``[..., 1]``, or ``[..., F]`` with the per-feature ``cegb_pen``, the
+    split penalty's product fused into that sum where XLA's CPU backend
+    contracts it (the candidate scans; not the per-feature vote)."""
+    a = f32(cfg.cegb_tradeoff * cfg.cegb_penalty_split)
+    if cegb_pen is None:
+        return a * count[..., None]
+    if fused:
+        return fma(count[..., None].expand_as(cegb_pen), a, cegb_pen)
+    return a * count[..., None] + cegb_pen
+
+
 def _categorical_best(hist, parent_sums, num_bin, cat_allowed,
-                      cfg: SplitConfig, out_lower=None, out_upper=None):
+                      cfg: SplitConfig, out_lower=None, out_upper=None,
+                      parent_out=None, contri=None, cegb_pen=None):
     """Best categorical split of each leaf (reference:
     ``FindBestThresholdCategoricalInner``, through the JAX package's
     ``_categorical_best``). Ties go to the first index of the flattened
@@ -342,7 +443,8 @@ def _categorical_best(hist, parent_sums, num_bin, cat_allowed,
     B = hist.shape[-2]
     dev = hist.device
     all_gain, orders, cum, valid_bin = _categorical_candidates(
-        hist, parent_sums, num_bin, cat_allowed, cfg, out_lower, out_upper)
+        hist, parent_sums, num_bin, cat_allowed, cfg, out_lower, out_upper,
+        parent_out, contri, cegb_pen)
     flat = all_gain.flatten(-3)
     best = torch.argmax(flat, dim=-1, keepdim=True)
     best_gain = torch.gather(flat, -1, best)[..., 0]
@@ -380,12 +482,37 @@ def _categorical_best(hist, parent_sums, num_bin, cat_allowed,
 
 
 def per_feature_gains(hist, parent_sums, num_bin, has_nan, allowed_feature,
-                      cfg: SplitConfig) -> torch.Tensor:
+                      cfg: SplitConfig, is_cat=None, cat_idx=None,
+                      mono=None, out_lower=None, out_upper=None,
+                      cegb_pen=None, parent_out=None, extra_u=None,
+                      contri=None, depth=None) -> torch.Tensor:
     """Best achievable gain per feature ``[..., F]`` — the local vote of
-    the voting-parallel learner (PV-Tree)."""
-    gain, _ = _numerical_candidates(hist, parent_sums, num_bin, has_nan,
-                                    allowed_feature, cfg)
-    return gain.flatten(-2).amax(dim=-1)
+    the voting-parallel learner (PV-Tree). The arguments are
+    ``find_best_split``'s; the gains are CEGB-penalized."""
+    categorical = cfg.has_categorical and cat_idx is not None
+    num_allowed = allowed_feature & ~is_cat if categorical \
+        else allowed_feature
+    gain, _ = _numerical_candidates(
+        hist, parent_sums, num_bin, has_nan, num_allowed, cfg, mono=mono,
+        out_lower=out_lower, out_upper=out_upper, depth=depth,
+        parent_out=parent_out, extra_u=extra_u, contri=contri)
+    pf = gain.flatten(-2).amax(dim=-1)
+    if cfg.has_cegb:
+        pf = torch.where(torch.isfinite(pf),
+                         pf - _cegb_penalty(cfg, parent_sums[..., 2],
+                                            cegb_pen, fused=False), pf)
+    if categorical:
+        all_gain, _, _, _ = _categorical_candidates(
+            hist.index_select(-3, cat_idx), parent_sums, num_bin[cat_idx],
+            allowed_feature.index_select(-1, cat_idx), cfg,
+            out_lower=out_lower, out_upper=out_upper, parent_out=parent_out,
+            contri=None if contri is None else contri[cat_idx],
+            cegb_pen=(None if cegb_pen is None
+                      else cegb_pen.index_select(-1, cat_idx)))
+        pf_cat = torch.full_like(pf, NEG_INF)
+        pf_cat[..., cat_idx] = all_gain.flatten(-2).amax(dim=-1)
+        pf = torch.maximum(pf, pf_cat)
+    return pf
 
 
 def elect_best(gathered: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -411,7 +538,11 @@ def find_best_split(hist: torch.Tensor, parent_sums: torch.Tensor,
                     mono: Optional[torch.Tensor] = None,
                     out_lower: Optional[torch.Tensor] = None,
                     out_upper: Optional[torch.Tensor] = None,
-                    depth: Optional[torch.Tensor] = None
+                    depth: Optional[torch.Tensor] = None,
+                    cegb_pen: Optional[torch.Tensor] = None,
+                    parent_out: Optional[torch.Tensor] = None,
+                    extra_u: Optional[torch.Tensor] = None,
+                    contri: Optional[torch.Tensor] = None
                     ) -> Dict[str, torch.Tensor]:
     """Best split of each leaf given its histogram.
 
@@ -432,6 +563,15 @@ def find_best_split(hist: torch.Tensor, parent_sums: torch.Tensor,
         ``cfg.has_monotone``.
       depth: ``[...]`` int32 leaf depths; read only with
         ``cfg.monotone_penalty > 0``.
+      cegb_pen: ``[..., F]`` float32 per-feature CEGB penalties (coupled
+        and lazy), added to the split penalty; read only with
+        ``cfg.has_cegb``.
+      parent_out: ``[...]`` the leaves' parent outputs; read only with
+        ``cfg.path_smooth > 0``.
+      extra_u: ``[..., F]`` float32 uniforms, one numerical threshold per
+        feature; read only with ``cfg.extra_trees``.
+      contri: ``[F]`` float32 gain factors; read only with
+        ``cfg.has_contri``.
 
     Returns dict of ``[...]`` tensors: ``gain`` (−inf if no valid split),
     ``feature``, ``threshold_bin`` (split sends ``bin <= t`` left),
@@ -454,9 +594,17 @@ def find_best_split(hist: torch.Tensor, parent_sums: torch.Tensor,
         bounds = dict(out_lower=out_lower, out_upper=out_upper)
     else:
         mono = None
+    opts = dict(parent_out=parent_out, contri=contri)
     gain, left = _numerical_candidates(hist, parent_sums, num_bin, has_nan,
                                        num_allowed, cfg, mono=mono,
-                                       depth=depth, **bounds)
+                                       depth=depth, extra_u=extra_u,
+                                       **bounds, **opts)
+    if cfg.has_cegb:
+        # candidates whose penalized gain no longer clears
+        # min_gain_to_split are dropped
+        gain = gain - _cegb_penalty(cfg, parent_sums[..., 2], cegb_pen)[
+            ..., None, None]
+        gain = torch.where(gain > cfg.min_gain_to_split, gain, NEG_INF)
     flat = gain.flatten(-3)                                   # [..., F*B*2]
     best = torch.argmax(flat, dim=-1, keepdim=True)
     best_gain = torch.gather(flat, -1, best)[..., 0]
@@ -470,9 +618,14 @@ def find_best_split(hist: torch.Tensor, parent_sums: torch.Tensor,
             best.shape + (1, 3)))[..., 0, :]
     out = {}
     if categorical:
+        if contri is not None:
+            opts["contri"] = contri[cat_idx]
         cgain, cfeat, cleft, cinset = _categorical_best(
             hist.index_select(-3, cat_idx), parent_sums, num_bin[cat_idx],
-            allowed_feature.index_select(-1, cat_idx), cfg, **bounds)
+            allowed_feature.index_select(-1, cat_idx), cfg,
+            cegb_pen=(None if cegb_pen is None
+                      else cegb_pen.index_select(-1, cat_idx)),
+            **bounds, **opts)
         cfeat = cat_idx[cfeat]
         take_cat = cgain > best_gain
         best_gain = torch.maximum(best_gain, cgain)

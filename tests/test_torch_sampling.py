@@ -74,14 +74,6 @@ def test_feature_masks_equal(frac, seed):
         assert got.sum() == int(np.ceil(port.num_features * frac))
 
 
-def test_feature_fraction_bynode_fails_by_name():
-    X, y = synth_higgs(2000, 4)
-    with pytest.raises(lgt.LightGBMError, match="feature_fraction_bynode"):
-        lgt.train({"objective": "binary", "device_type": "cpu",
-                   "verbosity": -1, "feature_fraction_bynode": 0.5},
-                  lgt.Dataset(X, label=y), num_boost_round=1)
-
-
 @pytest.fixture(scope="module")
 def trained():
     X, y = synth_higgs(24_000, 28)

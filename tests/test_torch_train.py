@@ -66,7 +66,10 @@ class JaxReplayNoise:
     fold_in(key, 0x9e37) then fold_in(., class k) -> split -> (kg, kh)
     for stochastic rounding of class k's tree; rank_xendcg's gammas from
     the key itself on a full-row step and from kg under GOSS), handed to
-    the port as tensors."""
+    the port as tensors. The split search's draws: fold_in(qkey, 0xB14D +
+    k) is class k's node key, folded with the search's tag for
+    feature_fraction_bynode, and with 0xE77A + extra_seed, then the tag,
+    for extra_trees."""
 
     def __init__(self, seed):
         self.seed = seed
@@ -87,6 +90,23 @@ class JaxReplayNoise:
         kg, kh = jax.random.split(kq)
         return tuple(torch.from_numpy(np.array(jax.random.uniform(
             k, (n,), minval=-0.5, maxval=0.5))) for k in (kg, kh))
+
+    def _node_key(self, iteration, k):
+        key = jax.random.PRNGKey(self.seed + iteration)
+        return jax.random.fold_in(jax.random.fold_in(key, 0x9e37),
+                                  0xB14D + k)
+
+    def node_uniforms(self, iteration, k, tag, C, F):
+        """feature_fraction_bynode's draw: the node key folded with the
+        search's tag (learner/serial.py::bynode_mask)."""
+        kk = jax.random.fold_in(self._node_key(iteration, k), tag)
+        return torch.from_numpy(np.array(jax.random.uniform(kk, (C, F))))
+
+    def extra_uniforms(self, iteration, k, tag, C, F, extra_seed=6):
+        """extra_trees' draw (learner/serial.py::extra_uniforms)."""
+        kk = jax.random.fold_in(jax.random.fold_in(
+            self._node_key(iteration, k), 0xE77A + extra_seed), tag)
+        return torch.from_numpy(np.array(jax.random.uniform(kk, (C, F))))
 
 
 @pytest.fixture(scope="module")
