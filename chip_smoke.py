@@ -487,6 +487,39 @@ OPT_PARITY_CASES = dict(
 OPT_PARITY_PARAMS = dict(PARITY_PARAMS, objective="binary",
                          learning_rate=0.3)
 
+# the wide-bins phase: the flagship's data (N_TRAIN rows, N_HOLDOUT held
+# out, binned on the device) at max_bin WIDE_MAX_BIN (every feature above
+# 256 bins: uint16 ids) in turns with max_bin 255: WIDE_ROUNDS rounds of
+# the flagship's GOSS settings (PARAMS, GOSS from iteration 10) and of
+# full rows with the partition forced on (FULL_PARAMS), each wide booster
+# updated in turns with its 255 twin, iteration for iteration; one traced
+# and one recorded iteration more of each. Then synthetic kernel-A calls
+# (B, F, n, K), the native route's construct at 1M and WIDE_NATIVE_ROWS
+# rows, and the card against the CPU on N_PARITY rows
+WIDE_MAX_BIN, WIDE_ROUNDS = 1023, 16
+WIDE_SYNTH = ((4096, 2, 1_000_000, 32), (65_536, 2, 1_000_000, 32))
+WIDE_NATIVE_ROWS = 10_000_000
+WIDE_MODES = {"goss": dict(PARAMS),
+              "partition": dict(FULL_PARAMS, tpu_hist_partition="true",
+                                use_quantized_grad=True)}
+# card against CPU: case -> (data, params), every path the port trains
+WIDE_PARITY_CASES = {
+    "masked": ("higgs", {"bagging_fraction": 0.7, "bagging_freq": 1,
+                         "feature_fraction": 0.8}),
+    "exact": ("higgs", {"use_quantized_grad": False}),
+    "goss": ("higgs", {"data_sample_strategy": "goss"}),
+    "partition": ("higgs", {"tpu_hist_partition": "true"}),
+    "multiclass": ("higgs3", {"objective": "multiclass", "num_class": 3}),
+    "dart": ("higgs", {"boosting": "dart", "drop_rate": 0.5,
+                       "skip_drop": 0.0}),
+    "categorical_1000": ("cat1000", {}),
+    "bynode_extra_trees": ("higgs", {"feature_fraction_bynode": 0.6,
+                                     "extra_trees": True}),
+    "efb_wide_column": ("efb", {}),
+}
+WIDE_PARITY_PARAMS = dict(PARITY_PARAMS, objective="binary",
+                          learning_rate=0.3, max_bin=WIDE_MAX_BIN)
+
 
 def synth_higgs(n, f, seed=0, regression=False):
     """Higgs-like data: the port's copy of bench.py::synth_higgs; with
@@ -3928,6 +3961,535 @@ def options_phase(lgt, th, tc, tp, serial, gbdt, smi):
     return res
 
 
+def wide_launches(th, tc, tp):
+    """Launch counts of A, B and B′, all and uint16 ones."""
+    return np.array([th.multi_leaf_histogram.launches,
+                     th.multi_leaf_histogram.launches_u16,
+                     tc.compact_by_mask.launches,
+                     tc.compact_by_mask.launches_u16,
+                     tp.partition_move.launches,
+                     tp.partition_move.launches_u16], np.int64)
+
+
+WIDE_KEYS = ("histogram", "histogram_u16", "compact", "compact_u16",
+             "partition", "partition_u16")
+
+
+def wide_data(lgt):
+    """The flagship's data, binned on the device at WIDE_MAX_BIN and at
+    255, twice in turns (construct seconds by route; a process's first
+    device construct also loads torch's kernels: 144 device ms where this
+    phase runs alone); the second pair trains."""
+    X, y = synth_higgs(N_TRAIN + N_HOLDOUT, N_FEAT, seed=0)
+    out = {}
+    for tag, mb in (("wide", WIDE_MAX_BIN), ("narrow", 255),
+                    ("wide", WIDE_MAX_BIN), ("narrow", 255)):
+        ds = lgt.Dataset(X[:N_TRAIN], label=y[:N_TRAIN],
+                         params={"max_bin": mb})
+        ds.construct()
+        vs = ds.create_valid(X[N_TRAIN:], label=y[N_TRAIN:])
+        ing = ds.device_ingested()
+        want = torch.uint16 if mb > 255 else torch.uint8
+        if ing is None or ing.bins.dtype != want:
+            raise AssertionError(f"wide bins: max_bin {mb} did not take "
+                                 f"the device route as {want}")
+        nb = ds.feature_num_bins()
+        earlier = out[tag]["binning"] if tag in out else []
+        out[tag] = dict(ds=ds, vs=vs, binning=earlier + [binning_line(
+            f"wide bins {N_TRAIN} x {N_FEAT} max_bin {mb}", ds)],
+            num_bins=(int(nb.min()), int(nb.max())))
+        print(f"wide bins: max_bin {mb}: {nb.min()}-{nb.max()} bins a "
+              f"feature, {ing.bins.dtype} ids", flush=True)
+    if out["wide"]["num_bins"][0] <= 256:
+        raise AssertionError("wide bins: a feature has 256 bins or fewer")
+    return out, X, y
+
+
+def wide_pair(lgt, th, tc, tp, serial, gbdt, smi, data, mode):
+    """One mode's wide booster in turns with its 255 twin: WIDE_ROUNDS
+    updates each (launches per booster, it/s over the GOSS iterations or
+    after the first), holdout AUC, resident bin bytes, one traced
+    iteration each, then one recorded iteration each (kernel-A calls,
+    the compaction or the partition moves)."""
+    base = WIDE_MODES[mode]
+    boosters = {}
+    for tag in ("wide", "narrow"):
+        mb = WIDE_MAX_BIN if tag == "wide" else 255
+        b = lgt.Booster(params=dict(base, max_bin=mb),
+                        train_set=data[tag]["ds"])
+        b.add_valid(data[tag]["vs"], "holdout")
+        boosters[tag] = b
+    for tag, b in boosters.items():
+        eng = b.engine
+        want = torch.uint16 if tag == "wide" else torch.uint8
+        if not (eng.data.bins_t.dtype == want
+                and eng.use_goss_compact == (mode == "goss")
+                and eng.hist_partition == (mode == "partition")
+                and eng.grow_cfg.int_hist
+                and eng.grow_cfg.leaf_batch == base["tpu_leaf_batch"]):
+            raise AssertionError(f"wide bins {mode} {tag}: engine "
+                                 f"{eng.grow_cfg}")
+    secs = {k: [] for k in boosters}
+    launches = {k: np.zeros(len(WIDE_KEYS), np.int64) for k in boosters}
+    for _ in range(WIDE_ROUNDS):
+        for k, b in boosters.items():
+            c0 = wide_launches(th, tc, tp)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            b.update()
+            torch.cuda.synchronize()
+            secs[k].append(time.perf_counter() - t)
+            launches[k] += wide_launches(th, tc, tp) - c0
+    # GOSS: its iterations after the first (whose first compaction of a
+    # process's bin type loads the kernel's instance)
+    first = int(1.0 / PARAMS["learning_rate"]) + 1 if mode == "goss" else 1
+    r = {}
+    for k, b in boosters.items():
+        eng = b.engine
+        [(_, _, auc, _)] = b.eval_valid()
+        d = eng.data
+        r[k] = dict(it_per_s=len(secs[k][first:]) / sum(secs[k][first:]),
+                    iter_s=[round(x, 4) for x in secs[k]], auc=auc,
+                    launches=dict(zip(WIDE_KEYS, (int(x)
+                                                  for x in launches[k]))),
+                    resident_bin_bytes=int(d.bins.nbytes
+                                           + d.bins_t.nbytes),
+                    B=eng.B)
+        r[k]["trace"] = trace_rounds(b, 1)
+    hrec = HistRecorder(serial, th)
+    crec = CallRecorder(gbdt, "compact_by_mask")
+    prec = CallRecorder(serial, "partition_move")
+    rec = {}
+    try:
+        for k, b in boosters.items():
+            hrec.tag, crec.on, prec.on = f"{mode}_{k}", True, True
+            n0 = (len(hrec.calls), len(crec.calls), len(prec.calls))
+            b.update()
+            rec[k] = dict(hist=hrec.calls[n0[0]:],
+                          compact=crec.calls[n0[1]:],
+                          moves=prec.calls[n0[2]:])
+            hrec.tag, crec.on, prec.on = None, False, False
+    finally:
+        hrec.close()
+        crec.close()
+        prec.close()
+    w, n = r["wide"], r["narrow"]
+    for k in r:
+        tr = r[k]["trace"]
+        print(f"wide bins: {mode} max_bin "
+              f"{WIDE_MAX_BIN if k == 'wide' else 255} (B = {r[k]['B']}) "
+              f"at {N_TRAIN} x {N_FEAT}: {r[k]['it_per_s']:.3f} it/s "
+              f"({'GOSS iterations after the first' if mode == 'goss' else
+                  'after the first'}, in turns with its twin; seconds "
+              f"{r[k]['iter_s']}) on {smi}; holdout AUC "
+              f"{r[k]['auc']:.6f}; launches {r[k]['launches']}; resident "
+              f"bins {r[k]['resident_bin_bytes']} bytes; one traced "
+              f"iteration: {tr['wall_ms_per_iter']:.2f} ms wall, kernel A "
+              f"{tr['kernel_a_ms_per_iter']} ms, B / B′ "
+              f"{tr['step_ms_per_iter']} ms, idle share {tr['idle_share']}, "
+              f"device-to-host copies {tr['dtoh_per_iter']}; top device time "
+              f"(ms) {tr['top_kernels']}", flush=True)
+    need_b = mode == "goss"
+    if not (w["launches"]["histogram_u16"] > 0
+            and w["launches"]["histogram_u16"] == w["launches"]["histogram"]
+            and (w["launches"]["compact_u16"] > 0) == need_b
+            and (w["launches"]["partition_u16"] > 0) == (not need_b)
+            and n["launches"]["histogram_u16"] == 0
+            and n["launches"]["compact_u16"] == 0
+            and n["launches"]["partition_u16"] == 0
+            and math.isfinite(w["it_per_s"]) and w["auc"] > 0.75
+            and abs(w["auc"] - n["auc"]) < 0.02
+            and w["resident_bin_bytes"] == 2 * n["resident_bin_bytes"]):
+        raise AssertionError(f"wide bins {mode}: {r}")
+    if not (rec["wide"]["hist"] and (len(rec["wide"]["compact"]) == 1)
+            == need_b and bool(rec["wide"]["moves"]) == (not need_b)):
+        counts = {k: len(v) for k, v in rec["wide"].items()}
+        raise AssertionError(f"wide bins {mode}: recorded calls {counts}")
+    return r, rec
+
+
+def wide_hist_calls(th, calls, twin, label):
+    """Kernel A on one recorded iteration of a wide run: int mode and
+    exact-sum f32 bit-equal, f32 on the recorded values within the
+    tolerance; device ms (int, f32) beside the plain version, an int
+    ``index_add_`` and the bound (2-byte bins); the 255 twin's call of the
+    same index timed as uint8, and as uint16 at its B."""
+    rng = np.random.default_rng(15)
+    exact, rows = {}, []
+    for i, call in enumerate(calls):
+        bins, vals, leaf, ids = call["args"]
+        B = call["kw"]["num_bins"]
+        F, n = bins.shape
+        C, K = vals.shape[0], ids.shape[0]
+        hold_call(th, call, f"{label} call {i}", rng, exact)
+        err = hold_f32_calls(th, [call], f"{label} call {i}")
+        kw = dict(num_bins=B)
+        r = dict(n=n, F=F, B=B, K=K, live_lanes=int(
+            torch.unique(ids[ids >= 0]).numel()), f32_max_abs_err=err)
+        r["int_ms"] = device_ms(lambda: th.multi_leaf_histogram(
+            bins, vals, leaf, ids, int_mode=True, **kw), reps=10)
+        r["f32_ms"] = device_ms(lambda: th.multi_leaf_histogram(
+            bins, vals, leaf, ids, **kw), reps=10)
+        r["plain_ms"] = time_ms(lambda: th.multi_leaf_histogram_plain(
+            bins, vals, leaf, ids, int_mode=True, **kw), reps=2, warmup=1)
+        idx, src, m, pairs = lane_index(bins.to(torch.int32), vals, leaf,
+                                        ids, B)
+        buf = torch.zeros(K * F * B * C, dtype=torch.int32,
+                          device=bins.device)
+        src = src.to(torch.int32)
+        r["library_ms"] = time_ms(lambda: buf.index_add_(0, idx, src),
+                                  reps=5)
+        del idx, src, buf
+        nbytes = 4 * n + (2 * F + 4 * C) * m + 4 * K + 4 * K * F * B * C
+        r["bound_ms"], r["bound_by"] = bound(nbytes, pairs * F * C)
+        r["matched_rows"] = m
+        r["scratch_bytes"] = int(
+            th._lib().lgbt_multi_leaf_histogram_u16_scratch(
+                bins.data_ptr(), vals.data_ptr(), leaf.data_ptr(), n, F, C,
+                K, B))
+        if i < len(twin):
+            tb_, tv, tl, ti = twin[i]["args"]
+            tB = twin[i]["kw"]["num_bins"]
+            r["u8_B"], r["u8_n"] = tB, tb_.shape[1]
+            r["u8_int_ms"] = device_ms(lambda: th.multi_leaf_histogram(
+                tb_, tv, tl, ti, num_bins=tB, int_mode=True), reps=10)
+            t16 = tb_.to(torch.int16).view(torch.uint16)
+            r["u16_at_u8_B_int_ms"] = device_ms(
+                lambda: th.multi_leaf_histogram(t16, tv, tl, ti,
+                                                num_bins=tB, int_mode=True),
+                reps=10)
+            got = th.multi_leaf_histogram(t16, tv, tl, ti, num_bins=tB,
+                                          int_mode=True)
+            ref = th.multi_leaf_histogram(tb_, tv, tl, ti, num_bins=tB,
+                                          int_mode=True)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{label} call {i}: uint16 and uint8 "
+                                     f"bins of the same ids differ")
+            del t16, got, ref
+        rows.append(r)
+        print(f"wide bins: {label} call {i} n={n} F={F} B={B} live lanes "
+              f"{r['live_lanes']}/{K}, matched rows {m}: kernel int "
+              f"{r['int_ms']:.4f} / f32 {r['f32_ms']:.4f} ms device (f32 "
+              f"max |diff| {err:.3g} within tolerance; int and exact-sum "
+              f"f32 bit-equal), plain {r['plain_ms']:.3f} ms, index_add_ "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), scratch {r['scratch_bytes']} bytes"
+              + (f"; the 255 twin's call {i} (n={r['u8_n']}, B="
+                 f"{r['u8_B']}): uint8 {r['u8_int_ms']:.4f} ms, its bins as "
+                 f"uint16 {r['u16_at_u8_B_int_ms']:.4f} ms"
+                 if "u8_int_ms" in r else ""), flush=True)
+    return rows
+
+
+def wide_moves(tc, tp, tb, compactions, moves, label):
+    """B and B′ on the recorded wide calls: bit-equal to the plain
+    versions (``hold_moves``), device ms of the uint16 launch beside the
+    same call on the ids' low bytes (uint8), the plain version, the
+    library call (mask select / three ``index_copy_``, on the bins' int16
+    view) and the bound (2-byte rows)."""
+    held = hold_moves(tc, tp, compactions, moves, label)
+    comp, mov = [], []
+    for bins, vals, keep, out_cols in compactions:
+        F, n = bins.shape
+        C = vals.shape[0]
+        k = int(keep.sum())
+        b8 = bins.view(torch.int16).to(torch.uint8)
+        r = dict(F=F, C=C, n=n, kept=k, out_cols=out_cols)
+        r["ms"] = device_ms(lambda: tc.compact_by_mask(bins, vals, keep,
+                                                       out_cols))
+        r["u8_ms"] = device_ms(lambda: tc.compact_by_mask(b8, vals, keep,
+                                                          out_cols))
+        r["plain_ms"] = time_ms(lambda: tc.compact_by_mask_plain(
+            bins, vals, keep, out_cols), reps=5)
+        mb = tb.movable(bins)
+        r["library_ms"] = time_ms(lambda: (mb[:, keep], vals[:, keep]),
+                                  reps=5)
+        r["bound_ms"], r["bound_by"] = bound(
+            n + (2 * F + 4 * C) * (k + out_cols), 0)
+        comp.append(r)
+        print(f"wide bins: {label} compaction F={F} (2-byte rows) C={C} "
+              f"n={n} keep={k} out_cols={out_cols}: {r['ms']:.4f} ms device "
+              f"(uint8 rows {r['u8_ms']:.4f}), plain {r['plain_ms']:.3f} "
+              f"ms, mask select {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms; bit-equal", flush=True)
+    for bins, vals, old, new in moves:
+        F, n = bins.shape
+        C = vals.shape[0]
+        b8 = bins.view(torch.int16).to(torch.uint8)
+        dst = tuple(torch.empty_like(a) for a in (bins, vals, new))
+        dst8 = (torch.empty_like(b8),) + dst[1:]
+        r = dict(F=F, n=n, moved=int((new != old).sum()))
+        r["ms"] = device_ms(lambda: tp.partition_move(bins, vals, old, new,
+                                                      out=dst))
+        r["u8_ms"] = device_ms(lambda: tp.partition_move(b8, vals, old, new,
+                                                         out=dst8))
+        r["plain_ms"] = time_ms(lambda: tp.partition_move_plain(
+            bins, vals, old, new), reps=2, warmup=1)
+        d64 = tp.plan_split_move(new != old)[0].long()
+        mb, md = tb.movable(bins), tb.movable(dst[0])
+        r["library_ms"] = device_ms(lambda: (md.index_copy_(1, d64, mb),
+                                             dst[1].index_copy_(1, d64, vals),
+                                             dst[2].index_copy_(0, d64, new)),
+                                    reps=5)
+        r["bound_ms"], r["bound_by"] = bound(
+            n * ((2 * F + 4 * C + 8) + (2 * F + 4 * C + 4) + 4), 0)
+        mov.append(r)
+        print(f"wide bins: {label} partition move F={F} (2-byte rows) n={n} "
+              f"moved {r['moved']}: {r['ms']:.4f} ms device (uint8 rows "
+              f"{r['u8_ms']:.4f}), plain {r['plain_ms']:.3f} ms, index_copy_ "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms; "
+              f"bit-equal", flush=True)
+    return dict(held, compaction_times=comp, move_times=mov)
+
+
+def wide_synthetic(th, dev):
+    """Kernel A at WIDE_SYNTH's shapes (uint16, ids of 32,768 and more at
+    B = 65,536): int and exact-sum f32 bit-equal to the plain version,
+    device ms beside the plain version, an ``index_add_`` and the bound."""
+    rng = np.random.default_rng(16)
+    out = []
+    for B, F, n, K in WIDE_SYNTH:
+        bins = torch.from_numpy(rng.integers(0, B, size=(F, n)).astype(
+            np.uint16)).to(dev)
+        leaf = torch.from_numpy(rng.integers(0, 40, size=n).astype(
+            np.int32)).to(dev)
+        ids = torch.arange(K, dtype=torch.int32, device=dev)
+        dead = [i for i in INACTIVE_LANES if i < K]
+        ids[dead] = -1
+        vals = torch.from_numpy(rng.integers(-3, 4, size=(3, n)).astype(
+            np.float32)).to(dev)
+        call = dict(args=(bins, vals, leaf, ids), kw=dict(num_bins=B))
+        hold_call(th, call, f"wide bins synthetic B={B}", rng, {})
+        r = dict(B=B, F=F, n=n, K=K)
+        r["int_ms"] = device_ms(lambda: th.multi_leaf_histogram(
+            bins, vals, leaf, ids, num_bins=B, int_mode=True), reps=10)
+        r["f32_ms"] = device_ms(lambda: th.multi_leaf_histogram(
+            bins, vals, leaf, ids, num_bins=B), reps=10)
+        r["plain_ms"] = time_ms(lambda: th.multi_leaf_histogram_plain(
+            bins, vals, leaf, ids, num_bins=B, int_mode=True), reps=2,
+            warmup=1)
+        idx, src, m, pairs = lane_index(bins.to(torch.int32), vals, leaf,
+                                        ids, B)
+        buf = torch.zeros(K * F * B * 3, dtype=torch.int32, device=dev)
+        src = src.to(torch.int32)
+        r["library_ms"] = time_ms(lambda: buf.index_add_(0, idx, src),
+                                  reps=5)
+        del idx, src, buf
+        nbytes = 4 * n + (2 * F + 12) * m + 4 * K + 4 * K * F * B * 3
+        r["bound_ms"], r["bound_by"] = bound(nbytes, pairs * F * 3)
+        r["matched_rows"] = m
+        r["scratch_bytes"] = int(
+            th._lib().lgbt_multi_leaf_histogram_u16_scratch(
+                bins.data_ptr(), vals.data_ptr(), leaf.data_ptr(), n, F, 3,
+                K, B))
+        out.append(r)
+        print(f"wide bins: synthetic A B={B} F={F} n={n} K={K} "
+              f"({K - len(dead)} live, matched rows {m}): int "
+              f"{r['int_ms']:.4f} / f32 {r['f32_ms']:.4f} ms device, plain "
+              f"{r['plain_ms']:.3f} ms, index_add_ {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), scratch "
+              f"{r['scratch_bytes']} bytes; int and exact-sum f32 bit-equal",
+              flush=True)
+        del bins, leaf, vals
+    return out
+
+
+def wide_native(lgt, X, y, ds_wide):
+    """The native host route at WIDE_MAX_BIN (its scalar search) at 1M
+    rows, byte-equal to the device route's bins, and at WIDE_NATIVE_ROWS
+    rows in turns with max_bin 255 (its branchless pass)."""
+    out = {}
+    ds = lgt.Dataset(X[:N_TRAIN], label=y[:N_TRAIN], params={
+        "max_bin": WIDE_MAX_BIN, "tpu_ingest_device": "false"}).construct()
+    if ds.device_ingested() is not None or ds.binned.dtype != np.uint16 \
+            or not np.array_equal(ds.binned, ds_wide.binned):
+        raise AssertionError("wide bins: the native route's bins differ "
+                             "from the device route's")
+    out["native_1M"] = binning_line(
+        f"wide bins {N_TRAIN} x {N_FEAT} max_bin {WIDE_MAX_BIN}", ds)
+    del ds
+    Xb, yb = synth_higgs(WIDE_NATIVE_ROWS, N_FEAT, seed=5)
+    for mb in (WIDE_MAX_BIN, 255, WIDE_MAX_BIN):
+        ds = lgt.Dataset(Xb, label=yb, params={
+            "max_bin": mb, "tpu_ingest_device": "false"}).construct()
+        out.setdefault(f"native_10M_{mb}", []).append(binning_line(
+            f"wide bins {WIDE_NATIVE_ROWS} x {N_FEAT} max_bin {mb}", ds))
+        del ds
+    del Xb, yb
+    return out
+
+
+def wide_parity_data():
+    n = N_PARITY + N_PARITY_HOLDOUT
+    X, y = synth_higgs(n, N_FEAT, seed=4)
+    logit = synth_higgs(n, N_FEAT, seed=4, regression=True)[1]
+    y3 = np.digitize(logit, np.quantile(logit, [1 / 3, 2 / 3])).astype(
+        np.float64)
+    rng = np.random.default_rng(6)
+    Xc = X.copy()
+    Xc[:, 27] = rng.integers(0, 1000, size=n)
+    Xc[rng.random(n) < 0.05, 27] = np.nan
+    yc = ((logit + (Xc[:, 27] % 7 < 2) * 1.5 > np.median(logit))
+          .astype(np.float64))
+    Xe = np.zeros((n, 12))
+    Xe[:, :4] = X[:, :4]
+    grp = rng.integers(0, 9, size=n)
+    for j in range(8):
+        # one decimal: some 60 bins a column, so they bundle (256 at most)
+        Xe[grp == j, 4 + j] = np.round(
+            rng.normal(size=int((grp == j).sum())) + 2.0, 1)
+    ye = (Xe[:, 0] + Xe[:, 4] - Xe[:, 7] + rng.normal(size=n) > 0) \
+        .astype(np.float64)
+    return {"higgs": (X, y, []), "higgs3": (X, y3, []),
+            "cat1000": (Xc, yc, [27]), "efb": (Xe, ye, [])}
+
+
+def wide_parity_run(lgt, th, tc, tp, smi):
+    """Every WIDE_PARITY_CASES run on the card and on the CPU from the
+    same draws: split lines identical (exact gradients: or the same rows
+    in every leaf), predictions within PARITY_PRED_TOL; the card's runs
+    launch the uint16 kernels."""
+    data = wide_parity_data()
+    out = {}
+    c0 = wide_launches(th, tc, tp)
+    for case, (which, extra) in WIDE_PARITY_CASES.items():
+        X, y, cats = data[which]
+        res = {}
+        for dev in ("cuda", "cpu"):
+            bst = lgt.train(dict(WIDE_PARITY_PARAMS, device_type=dev,
+                                 **extra),
+                            lgt.Dataset(X[:N_PARITY], label=y[:N_PARITY],
+                                        categorical_feature=cats),
+                            num_boost_round=PARITY_ROUNDS,
+                            noise=SameDraws(dev))
+            eng = bst.engine
+            if eng.data.bins.dtype != torch.uint16 or \
+                    eng.use_goss_compact != (case == "goss") or \
+                    eng.hist_partition != (case == "partition") or \
+                    eng.has_bundles != (case == "efb_wide_column"):
+                raise AssertionError(f"wide bins card against CPU {case}: "
+                                     f"engine paths")
+            res[dev] = (split_lines(bst.model_to_string()),
+                        bst.predict(X[N_PARITY:]),
+                        bst.predict(X[:N_PARITY], pred_leaf=True))
+        equal = res["cuda"][0] == res["cpu"][0]
+        same_rows = all(
+            len(set(zip(a.tolist(), b.tolist())))
+            == len(set(a.tolist())) == len(set(b.tolist()))
+            for a, b in zip(res["cuda"][2].T, res["cpu"][2].T))
+        diff = float(np.max(np.abs(res["cuda"][1] - res["cpu"][1])
+                            / np.maximum(1.0, np.abs(res["cpu"][1]))))
+        out[case] = dict(split_lines_equal=equal, same_leaf_rows=same_rows,
+                         max_rel_diff=diff)
+        print(f"wide bins: card against CPU, {case}: split lines "
+              f"{'identical' if equal else 'DIFFER'}, the same rows in "
+              f"every leaf {same_rows}, predictions max |diff| / max(1, "
+              f"|CPU|) {diff:.3g}", flush=True)
+        exact = extra.get("use_quantized_grad") is False
+        if not ((equal or (exact and same_rows))
+                and diff <= PARITY_PRED_TOL):
+            raise AssertionError(f"wide bins card against CPU, {case}: "
+                                 f"{out[case]}")
+    out["launches"] = dict(zip(WIDE_KEYS, (int(x) for x in
+                                           wide_launches(th, tc, tp) - c0)))
+    print(f"wide bins: card against CPU, the card's launches "
+          f"{out['launches']}", flush=True)
+    if not all(out["launches"][k] > 0 for k in ("histogram_u16",
+                                                 "compact_u16",
+                                                 "partition_u16")):
+        raise AssertionError(f"wide bins card against CPU: launches "
+                             f"{out['launches']}")
+    return out
+
+
+def wide_phase(lgt, th, tc, tp, serial, gbdt, smi, dev):
+    """Phase 15: wide bins. The flagship's 1M x 28 at max_bin 1023 in
+    turns with 255 (GOSS; full rows with the partition on), one recorded
+    iteration of each wide run's kernels held against their plain
+    versions and timed beside their uint8 times, synthetic A calls at
+    B = 4096 and 65,536, the native route's construct, and the card
+    against the CPU."""
+    from lightgbm_tpu_torch.ops import bins as tb
+    t0 = time.time()
+    data, X, y = wide_data(lgt)
+    th.multi_leaf_histogram.launches = 0
+    th.multi_leaf_histogram.launches_u16 = 0
+    tc.compact_by_mask.launches = 0
+    tc.compact_by_mask.launches_u16 = 0
+    tp.partition_move.launches = 0
+    tp.partition_move.launches_u16 = 0
+    runs, recs = {}, {}
+    for mode in WIDE_MODES:
+        runs[mode], recs[mode] = wide_pair(lgt, th, tc, tp, serial, gbdt,
+                                           smi, data, mode)
+    main_launches = dict(zip(WIDE_KEYS, (int(x) for x in
+                                         wide_launches(th, tc, tp))))
+    print(f"wide bins: the main path's launches (both modes, wide and 255 "
+          f"twins, from 0): {main_launches}", flush=True)
+    held = {}
+    for mode, rec in recs.items():
+        held[mode] = dict(
+            hist=wide_hist_calls(th, rec["wide"]["hist"],
+                                 rec["narrow"]["hist"], f"{mode} wide"),
+            **wide_moves(tc, tp, tb, rec["wide"]["compact"],
+                         rec["wide"]["moves"], f"{mode} wide"))
+    del recs
+    synth = wide_synthetic(th, dev)
+    native = dict(wide_native(lgt, X, y, data["wide"]["ds"]), **{
+        f"device_1M_{k}": v["binning"] for k, v in data.items()})
+    del data, X, y
+    parity = wide_parity_run(lgt, th, tc, tp, smi)
+    res = dict(runs=runs, main_launches=main_launches,
+               held_against_plain=held, synthetic=synth, binning=native,
+               card_vs_cpu=parity, seconds=time.time() - t0)
+    print(f"wide bins phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def wide_entries(wide):
+    """The kernels line's entries of the uint16 variants: launches from
+    the phase's main-path runs, times the means over the recorded
+    iteration's calls (A: the GOSS run's; B: its compaction; B′: the
+    partition run's moves)."""
+    def mean(rows, k):
+        return sum(r[k] for r in rows) / len(rows)
+    h = wide["held_against_plain"]
+    ga, comp = h["goss"]["hist"], h["goss"]["compaction_times"]
+    moves = h["partition"]["move_times"]
+    L = wide["main_launches"]
+    common = dict(route="cuda", bound_by="bytes")
+    return [
+        dict(name="multi_leaf_histogram_u16",
+             source="lightgbm_tpu_torch/csrc/histogram.cu",
+             replaces="lightgbm_tpu/ops/pallas_histogram.py:80",
+             launches=L["histogram_u16"], max_abs_err=0.0,
+             ms=mean(ga, "int_ms"), plain_ms=mean(ga, "plain_ms"),
+             bound_ms=mean(ga, "bound_ms"), library_ms=mean(ga, "library_ms"),
+             f32_ms=mean(ga, "f32_ms"),
+             u8_ms=mean([r for r in ga if "u8_int_ms" in r], "u8_int_ms"),
+             f32_max_abs_err=max(r["f32_max_abs_err"] for r in ga),
+             calls={m: h[m]["hist"] for m in h}, synthetic=wide["synthetic"],
+             **dict(common, bound_by=ga[0]["bound_by"])),
+        dict(name="compact_by_mask_u16",
+             source="lightgbm_tpu_torch/csrc/compact.cu",
+             core="lightgbm_tpu_torch/csrc/stable_partition.cuh",
+             replaces="lightgbm_tpu/ops/compact.py:166",
+             launches=L["compact_u16"], max_abs_err=0.0,
+             ms=mean(comp, "ms"), plain_ms=mean(comp, "plain_ms"),
+             bound_ms=mean(comp, "bound_ms"),
+             library_ms=mean(comp, "library_ms"), u8_ms=mean(comp, "u8_ms"),
+             shapes=comp, **common),
+        dict(name="partition_move_u16",
+             source="lightgbm_tpu_torch/csrc/partition.cu",
+             core="lightgbm_tpu_torch/csrc/stable_partition.cuh",
+             replaces="lightgbm_tpu/ops/partition.py:129",
+             launches=L["partition_u16"], max_abs_err=0.0,
+             ms=mean(moves, "ms"), plain_ms=mean(moves, "plain_ms"),
+             bound_ms=mean(moves, "bound_ms"),
+             library_ms=mean(moves, "library_ms"),
+             u8_ms=mean(moves, "u8_ms"), shapes=moves, **common)]
+
+
 def main(argv):
     t_script = time.time()
     json_out = argv[argv.index("--json-out") + 1] if "--json-out" in argv \
@@ -4019,6 +4581,10 @@ def main(argv):
         options_phase(lgt, th, tc, tp, serial, gbdt, smi)
         print(f"whole script: {time.time() - t_script:.1f} s", flush=True)
         return 0
+    if "--only-wide-bins" in argv:
+        wide_phase(lgt, th, tc, tp, serial, gbdt, smi, dev)
+        print(f"whole script: {time.time() - t_script:.1f} s", flush=True)
+        return 0
     n_full_pad = pad_rows(N_FULL, Config({}).tpu_rows_per_block)
     hist = histogram_phase(dev, th, tp, n_full_pad)
     comp = compaction_phase(dev, tc, parent)
@@ -4041,6 +4607,7 @@ def main(argv):
     bosch = bosch_phase(lgt, th, tc, tp, serial, gbdt, smi)
     ingest = ingest_phase(lgt, th, smi)
     opts = options_phase(lgt, th, tc, tp, serial, gbdt, smi)
+    wide = wide_phase(lgt, th, tc, tp, serial, gbdt, smi, dev)
 
     h, c, p = hist["masked"], comp["goss"], part["half"]
     fl = {m: r["launches"] for m, r in full.items()}
@@ -4156,11 +4723,14 @@ def main(argv):
                     "benchmarks/kernel_probe.py:43"),
         probe_entry("hist_probe_nibble", "nb16",
                     "benchmarks/nibble_probe.py:83"),
+        *wide_entries(wide),
     ], "train": dict({k: v for k, v in train.items()
                       if k not in ("trees_leaves",)}, full_row=full,
                      partition_sweep=sweep, objectives=objs,
                      categorical=cat, efb=efb, ranking=rank, bosch=bosch,
-                     ingest=ingest, split_options=opts)}
+                     ingest=ingest, split_options=opts,
+                     wide_bins={k: v for k, v in wide.items()
+                                if k != "held_against_plain"})}
     for v in (kernels_line["train"]["masked_it_per_s"],
               kernels_line["train"]["goss_it_per_s"]):
         if not math.isfinite(v):

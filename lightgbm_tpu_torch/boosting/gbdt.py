@@ -82,7 +82,8 @@ def resolve_device(device_type: str) -> torch.device:
 
 class DeviceData:
     """Device-resident binned data + metadata for one dataset: the
-    row-major ``[n_pad, F]`` uint8 bins, optionally the feature-major
+    row-major ``[n_pad, F]`` bins (uint8, or uint16 where a column has
+    more than 256 bins), optionally the feature-major
     ``[F, n_pad]`` copy the histogram and compaction kernels read, and
     label / weight / validity padded to ``n_pad`` rows (a multiple of
     ``rows_per_block``). Padding rows are bin 0 with validity 0. Under

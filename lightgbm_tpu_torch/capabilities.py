@@ -22,7 +22,11 @@ lazy penalties, and forced splits from ``forcedsplits_filename``; lazy
 CEGB with EFB bundles or a position-debiased objective is FATAL, and EFB
 bundles ignore forced splits with a warning, as in the JAX package), on
 dense, pandas (category columns included),
-scipy sparse, text-file or binary-file input, with bins assigned on the
+scipy sparse, text-file or binary-file input, with any ``max_bin`` and
+``max_bin_by_feature`` up to 65,535 (a feature of more than 256 bins makes
+the binned matrix uint16, which kernels A, B and B′ read as they read
+uint8; more than 65,536 bins is FATAL by the feature's name when the
+dataset is built), with bins assigned on the
 host's native binner or on the device (``tpu_ingest_device``; a chunk's
 rows follow from the width, so ``tpu_ingest_chunk_rows`` is not a knob),
 every metric (ndcg@k and map@k included) and early stopping. Every other feature of the
@@ -105,11 +109,6 @@ UNPORTED: Dict[str, Capability] = {
     "tree_learner": Capability(
         "distributed tree learners (data, voting, feature)",
         lambda c: c.tree_learner != "serial", {"tree_learner": "data"}),
-    "wide_bins": Capability(
-        "max_bin > 255 (uint16 bins)",
-        lambda c: int(c.max_bin) > 255 or any(
-            int(m) > 255 for m in (c.max_bin_by_feature or [])),
-        {"max_bin": 1023}),
     "linear_tree": Capability(
         "linear_tree", lambda c: bool(c.linear_tree), {"linear_tree": True}),
     "monotone_advanced": Capability(

@@ -1,9 +1,10 @@
 """Carry the JAX package's state across, as numpy arrays.
 
 The tests hand the same state to both packages: the padded binned
-matrices of ``lightgbm_tpu``'s ``_DeviceData`` (its feature-major copy is
-int8 holding uint8 values by wraparound; torch has uint8, so the bytes
-are viewed, not converted) and the per-tree arrays its engine fetches
+matrices of ``lightgbm_tpu``'s ``_DeviceData`` (uint8 or uint16; its
+feature-major copy of uint8 bins is int8 holding uint8 values by
+wraparound, and torch has uint8, so those bytes are viewed, not
+converted; uint16 stays uint16) and the per-tree arrays its engine fetches
 (``GBDT._fetch_tree_arrays``). Nothing here imports JAX: the arrays arrive
 as numpy.
 """
@@ -23,13 +24,20 @@ def device_data_from_jax(bins: np.ndarray, bins_t: Optional[np.ndarray],
                          weight: Optional[np.ndarray] = None,
                          device="cpu") -> DeviceData:
     """A ``DeviceData`` from the JAX package's padded arrays: ``bins``
-    ``[n_pad, F]`` uint8, ``bins_t`` ``[F, n_pad]`` int8 or uint8 (or
-    None), ``label``/``weight`` ``[n_pad]``, ``n`` real rows."""
+    ``[n_pad, F]`` uint8 or uint16, ``bins_t`` ``[F, n_pad]`` int8, uint8
+    or uint16 (or None), ``label``/``weight`` ``[n_pad]``, ``n`` real
+    rows."""
     dev = torch.device(device)
-    b = torch.from_numpy(np.array(bins).view(np.uint8)).to(dev)
-    bt = None
-    if bins_t is not None:
-        bt = torch.from_numpy(np.array(bins_t).view(np.uint8)).to(dev)
+
+    def as_bins(a):
+        a = np.array(a)
+        # one-byte ids are bytes (the int8 copy viewed); two-byte ones
+        # keep their dtype
+        return torch.from_numpy(a.view(np.uint8) if a.itemsize == 1
+                                else a.astype(np.uint16)).to(dev)
+
+    b = as_bins(bins)
+    bt = None if bins_t is None else as_bins(bins_t)
 
     def f32(a):
         return None if a is None else torch.from_numpy(

@@ -6,7 +6,7 @@
 // feature-major arrays. Contract, with pos[r] = the number of kept columns
 // before column r:
 //
-//   out_bins[f, pos[r]] = bins_t[f, r]   [F, out_cols] uint8
+//   out_bins[f, pos[r]] = bins_t[f, r]   [F, out_cols] uint8 or uint16
 //   out_vals[c, pos[r]] = vals_t[c, r]   [C, out_cols] f32
 //
 // for every kept column r (keep[r] != 0) with pos[r] < out_cols; the other
@@ -31,13 +31,15 @@
 // position, stage by stage through shared memory, cut at out_cols. When no
 // tile is left a CTA waits for the last tile's inclusive prefix (the kept
 // count) and zeroes its share of the tail, so nothing zeroes the outputs
-// beforehand.
+// beforehand. Bin rows of 2 bytes (lgbt_compact_by_mask_u16) take the
+// core's uint16 instance: two rows a stage instead of four.
 #include "stable_partition.cuh"
 
 namespace {
 
 using namespace sp;
 
+template <int kBe>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 compact_kernel(Rows a, const uint8_t* __restrict__ keep, int n,
                int out_cols, unsigned char* scratch, unsigned epoch) {
@@ -60,7 +62,7 @@ compact_kernel(Rows a, const uint8_t* __restrict__ keep, int n,
       const int c = k * kThreads + threadIdx.x;
       if (c < cols && keep[t0 + c]) bits |= 1u << k;
     }
-    issue_stage(a, 0, t0, cols, smem);      // overlaps the scan
+    issue_stage<kBe>(a, 0, t0, cols, smem);  // overlaps the scan
     unsigned short ld[kStrips];
     const unsigned kept = block_scan(bits, s_cnt, ld);
     if (threadIdx.x < 32) {
@@ -75,7 +77,8 @@ compact_kernel(Rows a, const uint8_t* __restrict__ keep, int n,
     const long long room = out_cols - f0;      // cut at out_cols
     const int nfe = room <= 0 ? 0 : static_cast<int>(room < kept ? room
                                                                   : kept);
-    move_tile(a, t0, cols, ld, static_cast<int>(kept), nfe, f0, 0, 0, smem);
+    move_tile<kBe>(a, t0, cols, ld, static_cast<int>(kept), nfe, f0, 0, 0,
+                   smem);
   }
   // every tile is taken: the last one's inclusive prefix is the kept count
   if (threadIdx.x == 0)
@@ -89,9 +92,9 @@ compact_kernel(Rows a, const uint8_t* __restrict__ keep, int n,
                        threadIdx.x;
   const long long nt = static_cast<long long>(gridDim.x) * kThreads;
   for (int r = 0; r < a.F + a.C; ++r) {
-    const int es = r < a.F ? 1 : 4;
-    char* lo = dst_row(a, r) + k0 * es;
-    char* hi = dst_row(a, r) + static_cast<long long>(out_cols) * es;
+    const int es = r < a.F ? kBe : 4;
+    char* lo = dst_row<kBe>(a, r) + k0 * es;
+    char* hi = dst_row<kBe>(a, r) + static_cast<long long>(out_cols) * es;
     char* v0 = reinterpret_cast<char*>(
         (reinterpret_cast<uintptr_t>(lo) + 15) & ~uintptr_t(15));
     char* v1 = reinterpret_cast<char*>(reinterpret_cast<uintptr_t>(hi) &
@@ -106,10 +109,31 @@ compact_kernel(Rows a, const uint8_t* __restrict__ keep, int n,
   }
 }
 
-// CTAs of a launch over n columns (see resident_grid).
+// CTAs of a launch over n columns (see resident_grid), per instance.
+template <int kBe>
 int grid_for(int n) {
-  return resident_grid(reinterpret_cast<const void*>(compact_kernel),
-                       num_tiles(n));
+  static int cap[kMaxDevices];
+  return resident_grid(reinterpret_cast<const void*>(compact_kernel<kBe>),
+                       num_tiles(n), cap);
+}
+
+template <int kBe>
+int launch(const void* bins_t, const void* vals_t, const void* keep, int n,
+           int F, int C, int out_cols, void* out_bins, void* out_vals,
+           void* scratch, unsigned epoch, void* stream) {
+  if (n < 0 || F < 0 || C < 0 || out_cols <= 0 || epoch == 0 ||
+      epoch >= (1u << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Rows a{static_cast<const char*>(bins_t), static_cast<const char*>(vals_t),
+         nullptr, static_cast<char*>(out_bins), static_cast<char*>(out_vals),
+         nullptr, F, C, 0, n, out_cols};
+  const int grid = grid_for<kBe>(n);
+  if (grid < 0) return -grid;
+  compact_kernel<kBe><<<grid, kThreads, kSmemBytes,
+                        static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const uint8_t*>(keep), n, out_cols,
+      static_cast<unsigned char*>(scratch), epoch);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -123,7 +147,7 @@ extern "C" long long lgbt_compact_scratch_bytes(int n) {
 // CTAs of a launch over n columns (the tiles, capped at what fits on the
 // device at once); negative: a CUDA error.
 extern "C" int lgbt_compact_grid(int n) {
-  return grid_for(n);
+  return grid_for<1>(n);
 }
 
 // bins_t [F, n] uint8, vals_t [C, n] f32, keep [n] uint8 (non-zero: kept);
@@ -136,17 +160,17 @@ extern "C" int lgbt_compact_by_mask(const void* bins_t, const void* vals_t,
                                     int out_cols, void* out_bins,
                                     void* out_vals, void* scratch,
                                     unsigned epoch, void* stream) {
-  if (n < 0 || F < 0 || C < 0 || out_cols <= 0 || epoch == 0 ||
-      epoch >= (1u << 30))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Rows a{static_cast<const char*>(bins_t), static_cast<const char*>(vals_t),
-         nullptr, static_cast<char*>(out_bins), static_cast<char*>(out_vals),
-         nullptr, F, C, 0, n, out_cols};
-  const int grid = grid_for(n);
-  if (grid < 0) return -grid;
-  compact_kernel<<<grid, kThreads, kSmemBytes,
-                   static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const uint8_t*>(keep), n, out_cols,
-      static_cast<unsigned char*>(scratch), epoch);
-  return static_cast<int>(cudaGetLastError());
+  return launch<1>(bins_t, vals_t, keep, n, F, C, out_cols, out_bins,
+                   out_vals, scratch, epoch, stream);
+}
+
+// The same for uint16 bins_t and out_bins.
+extern "C" int lgbt_compact_by_mask_u16(const void* bins_t,
+                                        const void* vals_t, const void* keep,
+                                        int n, int F, int C, int out_cols,
+                                        void* out_bins, void* out_vals,
+                                        void* scratch, unsigned epoch,
+                                        void* stream) {
+  return launch<2>(bins_t, vals_t, keep, n, F, C, out_cols, out_bins,
+                   out_vals, scratch, epoch, stream);
 }

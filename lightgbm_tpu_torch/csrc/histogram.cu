@@ -6,8 +6,9 @@
 //   hist[k, f, b, c] = sum_r [bins_t[f, r] == b] * [leaf_id[r] == small_ids[k]]
 //                            * vals_t[c, r]      (rows with leaf_id[r] >= 0)
 //
-// bins_t [F, n] uint8, vals_t [C, n] f32, leaf_id [n] i32, small_ids [K] i32,
-// output [K, F, B, C] f32, every element written. A row with a negative
+// bins_t [F, n] uint8 (B <= 256) or uint16 (B <= 65,536), vals_t [C, n]
+// f32, leaf_id [n] i32, small_ids [K] i32, output [K, F, B, C] f32, every
+// element written. A row with a negative
 // leaf id matches no lane and a lane with a negative id gets a zero
 // histogram (the rule the reference documents for -1 lanes). In f32 mode
 // each added value is rounded to bf16 first and summed in f32 (the TPU
@@ -77,6 +78,19 @@
 //   barrier the CTAs share out the output rows of live lanes, sum each
 //   element's partials in CTA order with eight loads in flight, and write
 //   every output element as f32 (zeros for inactive lanes). One launch.
+//
+// Wide bins (uint16 bin ids, B up to 65,536; lgbt_multi_leaf_histogram_u16):
+// the same kernel, instantiated for 2-byte bins (8-byte loads of a row
+// group's bins). A slot tile of B C words grows with B: about 12 KiB at
+// B = 1024 and C = 3, so 18 tiles fit and a lane group holds 18 lanes (K =
+// 32 runs as two groups, each reading the rows once); 48 KiB at B = 4096
+// (4 tiles). Where one tile cannot hold B bins (B C > ~58k words, B >
+// ~19k at C = 3) each feature is cut into nw bin windows of bw bins, and
+// (feature, window) pairs take the place of features: a pass adds only
+// the rows whose bin falls in its window, so every row is read once a
+// window. Int mode stays exact in any order; f32 mode sums in another
+// order than the plain version, within the same tolerance as at B <= 256.
+// The uint8 instances are unchanged.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -102,6 +116,11 @@ constexpr long long kMinShare = 8192;  // (feature block, row) units a CTA
 constexpr int kMaxCtas = 256;
 constexpr int kRowBatch = 32;          // output rows per reduction step
 
+// bins of one row group: 4 bytes for uint8 ids, 8 for uint16
+template <typename BinT>
+using Bins4 = typename std::conditional<sizeof(BinT) == 1, uchar4,
+                                        ushort4>::type;
+
 // the lane group's live slots, shared by the CTA
 struct Meta {
   int live;                        // L: distinct non-negative ids
@@ -119,17 +138,22 @@ constexpr int kMetaBytes = (sizeof(Meta) + 15) / 16 * 16;
 
 // the launch's shape, computed the same way for the scratch query
 struct Plan {
+  int bw;           // bins of one window (B, unless one tile cannot hold B)
+  int nw;           // windows a feature (1 unless the tile cannot hold B)
+  int fv;           // features x windows: the row space's "features"
   int W;            // words of one slot tile (odd)
   int tiles;        // T
   int lanes;        // lanes per group
   int groups;
   int ctas;         // CTAs per group
   int smax;         // feature blocks one CTA's share touches, at most
-  int fbw;          // features of one block (1 or kFeatBlock)
+  int fbw;          // features of one block (1 or kFeatBlock; 1 if nw > 1)
   long long share;  // (feature block, row) units per CTA
   int smem;
   size_t scratch;   // partial words
 };
+
+constexpr int kFixedBytes = kMetaBytes + kTable;
 
 int num_sms() {
   static int sms = 0;
@@ -144,8 +168,13 @@ int num_sms() {
 
 Plan make_plan(int n, int F, int C, int K, int B, int vec) {
   Plan p;
-  p.W = (B * C) | 1;                  // odd: tiles never alias banks
-  const int fixed = kMetaBytes + kTable;
+  // bin windows: as few as let one tile (bw C words, made odd) fit
+  const int bw_max = ((kSmemBytes - kFixedBytes) / 4 - 1) / C;
+  p.nw = (B + bw_max - 1) / bw_max;
+  p.bw = (B + p.nw - 1) / p.nw;
+  p.fv = F * p.nw;
+  p.W = (p.bw * C) | 1;               // odd: tiles never alias banks
+  const int fixed = kFixedBytes;
   p.tiles = (kSmemBytes - fixed) / (p.W * 4);
   p.lanes = min(min(kMaxLanes, K), p.tiles);
   p.groups = (K + p.lanes - 1) / p.lanes;
@@ -153,9 +182,10 @@ Plan make_plan(int n, int F, int C, int K, int B, int vec) {
   // one CTA per SM in all (a cooperative launch), each group's (feature
   // block, row) space cut into equal shares of whole groups of vec rows
   // two features a block halve the rows' re-reads, at twice the
-  // partial histograms; below kWideRows rows the partials cost more
-  p.fbw = n >= kWideRows ? kFeatBlock : 1;
-  const long long nfb = (F + p.fbw - 1) / p.fbw;
+  // partial histograms; below kWideRows rows the partials cost more. A
+  // (feature, bin window) pair takes a block of its own
+  p.fbw = n >= kWideRows && p.nw == 1 ? kFeatBlock : 1;
+  const long long nfb = (p.fv + p.fbw - 1) / p.fbw;
   const long long total = nfb * n;
   long long ctas = max(1, min(num_sms() / p.groups, kMaxCtas));
   ctas = min(ctas, (total + kMinShare - 1) / kMinShare);
@@ -165,7 +195,7 @@ Plan make_plan(int n, int F, int C, int K, int B, int vec) {
   p.ctas = static_cast<int>((total + share - 1) / share);
   p.smax = static_cast<int>((share - 1) / n + 2);
   p.scratch = static_cast<size_t>(p.groups) * p.ctas * p.smax * p.fbw
-              * p.lanes * B * C;
+              * p.lanes * p.bw * C;
   return p;
 }
 
@@ -205,19 +235,20 @@ __device__ __forceinline__ int slot_of(int lid, const uint8_t* table,
 }
 
 // four consecutive rows: their slots, values and the pass's bins
-template <bool kIntMode, int kC>
+template <typename BinT, bool kIntMode, int kC>
 struct Quad {
   using acc_t = typename std::conditional<kIntMode, int32_t, float>::type;
   int s[4];
-  uchar4 b[kFeatBlock];
+  Bins4<BinT> b[kFeatBlock];
   Row<acc_t, kC> v[4];
 };
 
 // load four consecutive rows' ids, values and the pass's bins (all loads
 // issued together), then look up the ids' slots
-template <bool kIntMode, int kC>
+template <typename BinT, bool kIntMode, int kC>
 __device__ __forceinline__ void load_quad(
-    Quad<kIntMode, kC>& q, int r, int r1, const uint8_t* __restrict__ bins,
+    Quad<BinT, kIntMode, kC>& q, int r, int r1,
+    const BinT* __restrict__ bins,
     const float* __restrict__ vals_t, const int32_t* __restrict__ leaf_id,
     int n, int nft, const uint8_t* table, int tsize, bool big,
     const Meta& m) {
@@ -239,7 +270,7 @@ __device__ __forceinline__ void load_quad(
 #pragma unroll
   for (int fi = 0; fi < kFeatBlock; ++fi) {
     if (fi < nft) {
-      q.b[fi] = *reinterpret_cast<const uchar4*>(
+      q.b[fi] = *reinterpret_cast<const Bins4<BinT>*>(
           bins + static_cast<size_t>(fi) * n + r);
     }
   }
@@ -249,20 +280,24 @@ __device__ __forceinline__ void load_quad(
   q.s[3] = slot_of(lid.w, table, tsize, big, m);
 }
 
-// add one row's values to slot s's tile of pass feature fi (replica rep)
+// add one row's values to slot s's tile of pass feature fi (replica rep);
+// the tile holds bins [lo, lo + B) (lo = 0 but in a bin window)
 template <typename acc_t, int kC>
 __device__ __forceinline__ void add_row(acc_t* tile, int tile_words, int L,
                                         int R, int rep, int B, int fi, int s,
-                                        int b, const Row<acc_t, kC>& v) {
-  if (s < 0 || b >= B) return;   // b >= B: no bin to add to
+                                        int b, const Row<acc_t, kC>& v,
+                                        int lo = 0) {
+  b -= lo;
+  // b outside [0, B): no bin to add to (one unsigned compare)
+  if (s < 0 || static_cast<unsigned>(b) >= static_cast<unsigned>(B)) return;
   acc_t* cell = tile + (fi * L + s) * tile_words + b * kC * R + rep;
 #pragma unroll
   for (int c = 0; c < kC; ++c) atomicAdd(cell + c * R, v.x[c]);
 }
 
-template <bool kIntMode, int kVec, int kC>
+template <typename BinT, bool kIntMode, int kVec, int kC>
 __global__ void __launch_bounds__(kThreads, 1)
-hist_kernel(const uint8_t* __restrict__ bins_t,
+hist_kernel(const BinT* __restrict__ bins_t,
             const float* __restrict__ vals_t,
             const int32_t* __restrict__ leaf_id,
             const int32_t* __restrict__ small_ids, int n, int F, int K,
@@ -281,8 +316,9 @@ hist_kernel(const uint8_t* __restrict__ bins_t,
   const int k0 = g * p.lanes;
   const int kg = min(p.lanes, K - k0);
   const int lane = threadIdx.x & 31;
-  const int BC = B * C;
-  // this CTA's partials: [smax][fbw][lanes][B*C]
+  const int BC = p.bw * C;             // words of one (window's) tile row
+  const int Fv = p.fv;                 // features x windows
+  // this CTA's partials: [smax][fbw][lanes][bw*C]
   const size_t seg_words = static_cast<size_t>(p.fbw) * p.lanes * BC;
   const size_t cta_words = p.smax * seg_words;
   acc_t* my_part = part + (static_cast<size_t>(g) * p.ctas + blockIdx.x)
@@ -339,7 +375,7 @@ hist_kernel(const uint8_t* __restrict__ bins_t,
   const int tile_words = R * p.W;      // one slot tile with its replicas
 
   // ---- phase 1: this CTA's share, into partial histograms ------------
-  const long long nfb = (F + p.fbw - 1) / p.fbw;
+  const long long nfb = (Fv + p.fbw - 1) / p.fbw;
   const long long total = nfb * n;
   long long pos = static_cast<long long>(blockIdx.x) * p.share;
   const long long end = min(total, pos + p.share);
@@ -354,21 +390,31 @@ hist_kernel(const uint8_t* __restrict__ bins_t,
     const int r1 = static_cast<int>(min(static_cast<long long>(n),
                                         r0 + (end - pos)));
     const int f_lo = fb * p.fbw;
-    const int nf = min(p.fbw, F - f_lo);
+    const int nf = min(p.fbw, Fv - f_lo);
     acc_t* seg = my_part + (fb - fb_first) * seg_words;
+    // a bin window (nw > 1, one feature a block): its feature, first bin
+    // and width; else lo = 0 and the width is B
+    const int wlo = p.nw > 1 ? (f_lo % p.nw) * p.bw : 0;
+    const int wb = p.nw > 1 ? min(p.bw, B - wlo) : B;
+    const int f_row = p.nw > 1 ? f_lo / p.nw : f_lo;
     for (int fp = 0; fp < nf; fp += Ft) {
       const int nft = min(Ft, nf - fp);
-      const uint8_t* bins = bins_t + static_cast<size_t>(f_lo + fp) * n;
+      const BinT* bins = bins_t + static_cast<size_t>(f_row + fp) * n;
       __syncthreads();                 // the tile is clear
 
       auto add = [=](int fi, int s, int b, const Row<acc_t, kC>& v) {
-        add_row<acc_t, kC>(tile, tile_words, L, R, rep, B, fi, s, b, v);
+        if constexpr (sizeof(BinT) == 1) {
+          add_row<acc_t, kC>(tile, tile_words, L, R, rep, B, fi, s, b, v);
+        } else {
+          add_row<acc_t, kC>(tile, tile_words, L, R, rep, wb, fi, s, b, v,
+                             wlo);
+        }
       };
       if constexpr (kVec == 4) {
         // n % 4 == 0 and share % 4 == 0: whole, aligned groups of 4 (one
         // group per thread in flight: two spill registers at 1024 threads)
         for (int r = r0 + 4 * threadIdx.x; r < r1; r += 4 * blockDim.x) {
-          Quad<kIntMode, kC> q;
+          Quad<BinT, kIntMode, kC> q;
           load_quad(q, r, r1, bins, vals_t, leaf_id, n, nft, table, tsize,
                     big, meta);
 #pragma unroll
@@ -448,7 +494,7 @@ hist_kernel(const uint8_t* __restrict__ bins_t,
   long long* off = reinterpret_cast<long long*>(tile);
   const int max_nc = min(p.ctas, static_cast<int>((n + p.share - 1)
                                                   / p.share) + 1);
-  const int live_rows = meta.nlive * F;
+  const int live_rows = meta.nlive * Fv;
   const int my_rows = live_rows > static_cast<int>(blockIdx.x)
       ? (live_rows - blockIdx.x + p.ctas - 1) / p.ctas : 0;
   for (int t0 = 0; t0 < my_rows; t0 += kRowBatch) {
@@ -458,8 +504,8 @@ hist_kernel(const uint8_t* __restrict__ bins_t,
       const int t = e / max_nc;
       const int ci = e - t * max_nc;
       const int row = blockIdx.x + (t0 + t) * p.ctas;
-      const int kl = meta.lane_order[row / F];
-      const int f = row % F;
+      const int kl = meta.lane_order[row / Fv];
+      const int f = row % Fv;          // a (feature, window) pair
       const int fb = f / p.fbw;
       const int c = static_cast<int>(static_cast<long long>(fb) * n
                                      / p.share) + ci;
@@ -477,6 +523,10 @@ hist_kernel(const uint8_t* __restrict__ bins_t,
     for (int e = threadIdx.x; e < nt * BC; e += blockDim.x) {
       const int t = e / BC;
       const int i = e - t * BC;
+      const int row = blockIdx.x + (t0 + t) * p.ctas;
+      const int fv = row % Fv;
+      const int lo = (fv % p.nw) * p.bw;           // the window's first bin
+      if (i >= (B - lo) * C) continue;             // past the last bin
       const long long* o_t = off + t * max_nc;
       acc_t v = acc_t(0);
       for (int c0 = 0; c0 < max_nc; c0 += 8) {
@@ -489,53 +539,71 @@ hist_kernel(const uint8_t* __restrict__ bins_t,
 #pragma unroll
         for (int u = 0; u < 8; ++u) v += x[u];
       }
-      const int row = blockIdx.x + (t0 + t) * p.ctas;
-      out[(static_cast<size_t>(k0 + meta.lane_order[row / F]) * F
-           + row % F) * BC + i] = static_cast<float>(v);
+      out[(static_cast<size_t>(k0 + meta.lane_order[row / Fv]) * F
+           + fv / p.nw) * B * C + lo * C + i] = static_cast<float>(v);
     }
   }
   const int dead_rows = (kg - meta.nlive) * F;
   for (int row = blockIdx.x; row < dead_rows; row += p.ctas) {
     const int kl = meta.lane_order[meta.nlive + row / F];
-    float* o = out + (static_cast<size_t>(k0 + kl) * F + row % F) * BC;
-    for (int i = threadIdx.x; i < BC; i += blockDim.x) o[i] = 0.f;
+    float* o = out + (static_cast<size_t>(k0 + kl) * F + row % F) * B * C;
+    for (int i = threadIdx.x; i < B * C; i += blockDim.x) o[i] = 0.f;
   }
 }
 
-template <bool kIntMode, int kVec, int kC>
-int launch_c(const uint8_t* bins_t, const float* vals_t,
+// Lanes of one launch: every lane group needs a CTA of its own and all
+// CTAs of a cooperative launch are resident at once (one an SM), so at
+// most num_sms() groups. Only wide bins with many lanes reach the limit
+// (B = 65,536 holds one lane a group); their lanes then go in chunks, one
+// launch each, in order on the stream, sharing the scratch.
+int lanes_per_launch(int n, int F, int C, int K, int B, int vec) {
+  return make_plan(n, F, C, K, B, vec).lanes * num_sms();
+}
+
+template <typename BinT, bool kIntMode, int kVec, int kC>
+int launch_c(const BinT* bins_t, const float* vals_t,
              const int32_t* leaf_id, const int32_t* small_ids, int n, int F,
              int K, int B, void* scratch, float* out, cudaStream_t stream) {
-  Plan p = make_plan(n, F, kC, K, B, kVec);
-  auto kernel = hist_kernel<kIntMode, kVec, kC>;
-  static int smem_set = 0;             // per instance and process
-  if (p.smem > smem_set) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         p.smem);
-    smem_set = p.smem;
+  auto kernel = hist_kernel<BinT, kIntMode, kVec, kC>;
+  const int chunk = lanes_per_launch(n, F, kC, K, B, kVec);
+  for (int k0 = 0; k0 < K; k0 += chunk) {
+    int kk = min(chunk, K - k0);
+    Plan p = make_plan(n, F, kC, kk, B, kVec);
+    static int smem_set = 0;           // per instance and process
+    if (p.smem > smem_set) {
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           p.smem);
+      smem_set = p.smem;
+    }
+    const int32_t* ids = small_ids + k0;
+    float* o = out + static_cast<size_t>(k0) * F * B * kC;
+    void* args[] = {&bins_t, &vals_t, &leaf_id, &ids, &n, &F, &kk, &B,
+                    &p, &scratch, &o};
+    dim3 grid(static_cast<unsigned>(p.ctas),
+              static_cast<unsigned>(p.groups));
+    cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), grid,
+                                dim3(kThreads), args,
+                                static_cast<size_t>(p.smem), stream);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
   }
-  void* args[] = {&bins_t, &vals_t, &leaf_id, &small_ids, &n, &F, &K, &B,
-                  &p, &scratch, &out};
-  dim3 grid(static_cast<unsigned>(p.ctas), static_cast<unsigned>(p.groups));
-  cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), grid,
-                              dim3(kThreads), args,
-                              static_cast<size_t>(p.smem), stream);
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }
 
 // the channel count is a template parameter so each row's values stay in
 // registers
-template <bool kIntMode, int kVec>
-int launch_vec(const uint8_t* bins_t, const float* vals_t,
+template <typename BinT, bool kIntMode, int kVec>
+int launch_vec(const BinT* bins_t, const float* vals_t,
                const int32_t* leaf_id, const int32_t* small_ids, int n, int F,
                int C, int K, int B, void* scratch, float* out,
                cudaStream_t stream) {
   switch (C) {
 #define LGBT_CASE(c)                                                     \
   case c:                                                                \
-    return launch_c<kIntMode, kVec, c>(bins_t, vals_t, leaf_id,          \
-                                       small_ids, n, F, K, B, scratch,   \
-                                       out, stream);
+    return launch_c<BinT, kIntMode, kVec, c>(bins_t, vals_t, leaf_id,    \
+                                             small_ids, n, F, K, B,      \
+                                             scratch, out, stream);
     LGBT_CASE(1) LGBT_CASE(2) LGBT_CASE(3) LGBT_CASE(4)
     LGBT_CASE(5) LGBT_CASE(6) LGBT_CASE(7) LGBT_CASE(8)
 #undef LGBT_CASE
@@ -544,17 +612,54 @@ int launch_vec(const uint8_t* bins_t, const float* vals_t,
   }
 }
 
-// the 4-row path needs whole groups of 4 and 16-byte aligned rows
-bool vec_rows(const void* bins_t, const void* vals_t, const void* leaf_id,
-              int n) {
+// the 4-row path needs whole groups of 4 and 16-byte aligned rows (bins:
+// a 4-row group's bytes aligned)
+bool vec_rows(const void* bins_t, int bin_bytes, const void* vals_t,
+              const void* leaf_id, int n) {
   return n % 4 == 0 && reinterpret_cast<uintptr_t>(vals_t) % 16 == 0
       && reinterpret_cast<uintptr_t>(leaf_id) % 16 == 0
-      && reinterpret_cast<uintptr_t>(bins_t) % 4 == 0;
+      && reinterpret_cast<uintptr_t>(bins_t) % (4 * bin_bytes) == 0;
 }
 
-bool bad_shape(int n, int F, int C, int K, int B) {
+bool bad_shape(int n, int F, int C, int K, int B, int max_bins) {
   return n <= 0 || F <= 0 || K <= 0 || C < 1 || C > kMaxChannels || B < 1
-      || B > 256;
+      || B > max_bins;
+}
+
+template <typename BinT>
+int launch(const void* bins_t, const void* vals_t, const void* leaf_id,
+           const void* small_ids, int n, int F, int C, int K, int B,
+           int int_mode, void* scratch, void* out, void* stream) {
+  if (bad_shape(n, F, C, K, B, sizeof(BinT) == 1 ? 256 : 65536)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  auto b = static_cast<const BinT*>(bins_t);
+  auto v = static_cast<const float*>(vals_t);
+  auto l = static_cast<const int32_t*>(leaf_id);
+  auto k = static_cast<const int32_t*>(small_ids);
+  auto o = static_cast<float*>(out);
+  const bool vec = vec_rows(bins_t, sizeof(BinT), vals_t, leaf_id, n);
+  if (int_mode) {
+    return vec ? launch_vec<BinT, true, 4>(b, v, l, k, n, F, C, K, B,
+                                           scratch, o, s)
+               : launch_vec<BinT, true, 1>(b, v, l, k, n, F, C, K, B,
+                                           scratch, o, s);
+  }
+  return vec ? launch_vec<BinT, false, 4>(b, v, l, k, n, F, C, K, B, scratch,
+                                          o, s)
+             : launch_vec<BinT, false, 1>(b, v, l, k, n, F, C, K, B, scratch,
+                                          o, s);
+}
+
+template <typename BinT>
+long long scratch_for(const void* bins_t, const void* vals_t,
+                      const void* leaf_id, int n, int F, int C, int K,
+                      int B) {
+  if (bad_shape(n, F, C, K, B, sizeof(BinT) == 1 ? 256 : 65536)) return 0;
+  const int vec = vec_rows(bins_t, sizeof(BinT), vals_t, leaf_id, n) ? 4 : 1;
+  const int kk = min(K, lanes_per_launch(n, F, C, K, B, vec));
+  return static_cast<long long>(make_plan(n, F, C, kk, B, vec).scratch) * 4;
 }
 
 }  // namespace
@@ -564,34 +669,32 @@ bool bad_shape(int n, int F, int C, int K, int B) {
 extern "C" long long lgbt_multi_leaf_histogram_scratch(
     const void* bins_t, const void* vals_t, const void* leaf_id, int n,
     int F, int C, int K, int B) {
-  if (bad_shape(n, F, C, K, B)) return 0;
-  const int vec = vec_rows(bins_t, vals_t, leaf_id, n) ? 4 : 1;
-  return static_cast<long long>(make_plan(n, F, C, K, B, vec).scratch) * 4;
+  return scratch_for<uint8_t>(bins_t, vals_t, leaf_id, n, F, C, K, B);
 }
 
-// Plain C entry point (bound with ctypes). Writes every element of `out`
-// ([K, F, B, C] float32); `scratch` holds at least the bytes
-// lgbt_multi_leaf_histogram_scratch gives, in any state. n, F and K are
-// positive. Returns cudaGetLastError() after the launch.
+// Plain C entry point (bound with ctypes). bins_t is uint8 (B <= 256).
+// Writes every element of `out` ([K, F, B, C] float32); `scratch` holds at
+// least the bytes lgbt_multi_leaf_histogram_scratch gives, in any state.
+// n, F and K are positive. Returns cudaGetLastError() after the launch.
 extern "C" int lgbt_multi_leaf_histogram(
     const void* bins_t, const void* vals_t, const void* leaf_id,
     const void* small_ids, int n, int F, int C, int K, int B, int int_mode,
     void* scratch, void* out, void* stream) {
-  if (bad_shape(n, F, C, K, B)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto s = static_cast<cudaStream_t>(stream);
-  auto b = static_cast<const uint8_t*>(bins_t);
-  auto v = static_cast<const float*>(vals_t);
-  auto l = static_cast<const int32_t*>(leaf_id);
-  auto k = static_cast<const int32_t*>(small_ids);
-  auto o = static_cast<float*>(out);
-  const bool vec = vec_rows(bins_t, vals_t, leaf_id, n);
-  if (int_mode) {
-    return vec ? launch_vec<true, 4>(b, v, l, k, n, F, C, K, B, scratch, o, s)
-               : launch_vec<true, 1>(b, v, l, k, n, F, C, K, B, scratch, o,
-                                     s);
-  }
-  return vec ? launch_vec<false, 4>(b, v, l, k, n, F, C, K, B, scratch, o, s)
-             : launch_vec<false, 1>(b, v, l, k, n, F, C, K, B, scratch, o, s);
+  return launch<uint8_t>(bins_t, vals_t, leaf_id, small_ids, n, F, C, K, B,
+                         int_mode, scratch, out, stream);
+}
+
+// The same two entry points for uint16 bins_t (B <= 65,536).
+extern "C" long long lgbt_multi_leaf_histogram_u16_scratch(
+    const void* bins_t, const void* vals_t, const void* leaf_id, int n,
+    int F, int C, int K, int B) {
+  return scratch_for<uint16_t>(bins_t, vals_t, leaf_id, n, F, C, K, B);
+}
+
+extern "C" int lgbt_multi_leaf_histogram_u16(
+    const void* bins_t, const void* vals_t, const void* leaf_id,
+    const void* small_ids, int n, int F, int C, int K, int B, int int_mode,
+    void* scratch, void* out, void* stream) {
+  return launch<uint16_t>(bins_t, vals_t, leaf_id, small_ids, n, F, C, K, B,
+                          int_mode, scratch, out, stream);
 }

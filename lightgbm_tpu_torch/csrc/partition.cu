@@ -9,7 +9,7 @@
 // n - cum[n - 1]:
 //
 //   dest[r] = moved[r] ? n_front + cum[r] - 1 : r - cum[r]
-//   out_bins[:, dest[r]] = bins_t[:, r]      [F, n] uint8
+//   out_bins[:, dest[r]] = bins_t[:, r]      [F, n] uint8 or uint16
 //   out_vals[:, dest[r]] = vals_t[:, r]      [C, n] f32
 //   out_leaf[dest[r]]    = leaf_new[r]       [n]    i32
 //
@@ -42,13 +42,15 @@
 //    front run at (its first column - moved before it) and the back run at
 //    n_front + (moved before it), stage by stage through shared memory.
 // Extra traffic over the bound: cum read once (4 B a column) and leaf_new
-// read twice.
+// read twice. Bin rows of 2 bytes (lgbt_partition_move_u16) take the
+// core's uint16 instance: two rows a stage instead of four.
 #include "stable_partition.cuh"
 
 namespace {
 
 using namespace sp;
 
+template <int kBe>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 partition_kernel(Rows a, const int32_t* __restrict__ leaf_old, int n,
                  int32_t* cum, int32_t* n_front_out, unsigned char* scratch,
@@ -113,7 +115,7 @@ partition_kernel(Rows a, const int32_t* __restrict__ leaf_old, int n,
     if (t >= ntiles) break;
     const long long t0 = static_cast<long long>(t) * kTile;
     const int cols = tile_cols(n, t0);
-    issue_stage(a, 0, t0, cols, smem);      // overlaps the reads of cum
+    issue_stage<kBe>(a, 0, t0, cols, smem);  // overlaps the reads of cum
     const int base = t0 > 0 ? __ldcg(&cum[t0 - 1]) : 0;
     const int nb = __ldcg(&cum[t0 + cols - 1]) - base;   // moved in tile
     const int nf = cols - nb;
@@ -129,14 +131,38 @@ partition_kernel(Rows a, const int32_t* __restrict__ leaf_old, int n,
             __ldcg(&cum[t0 + c]) != before ? nf + le : c - le);
       }
     }
-    move_tile(a, t0, cols, ld, nf, nf, t0 - base, n_front + base, nb, smem);
+    move_tile<kBe>(a, t0, cols, ld, nf, nf, t0 - base, n_front + base, nb,
+                   smem);
   }
 }
 
-// CTAs of a launch over n columns (see resident_grid).
+// CTAs of a launch over n columns (see resident_grid), per instance.
+template <int kBe>
 int grid_for(int n) {
-  return resident_grid(reinterpret_cast<const void*>(partition_kernel),
-                       num_tiles(n));
+  static int cap[kMaxDevices];
+  return resident_grid(reinterpret_cast<const void*>(partition_kernel<kBe>),
+                       num_tiles(n), cap);
+}
+
+template <int kBe>
+int launch(const void* bins_t, const void* vals_t, const void* leaf_old,
+           const void* leaf_new, int n, int F, int C, void* out_bins,
+           void* out_vals, void* out_leaf, void* cum, void* n_front,
+           void* scratch, unsigned epoch, void* stream) {
+  if (n <= 0 || F < 0 || C < 0 || epoch == 0 || epoch >= (1u << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Rows a{static_cast<const char*>(bins_t), static_cast<const char*>(vals_t),
+         static_cast<const char*>(leaf_new), static_cast<char*>(out_bins),
+         static_cast<char*>(out_vals), static_cast<char*>(out_leaf),
+         F, C, 1, n, n};
+  const int grid = grid_for<kBe>(n);
+  if (grid < 0) return -grid;
+  partition_kernel<kBe><<<grid, kThreads, kSmemBytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const int32_t*>(leaf_old), n,
+      static_cast<int32_t*>(cum), static_cast<int32_t*>(n_front),
+      static_cast<unsigned char*>(scratch), epoch);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -150,7 +176,7 @@ extern "C" long long lgbt_partition_scratch_bytes(int n) {
 // CTAs of a launch over n columns (the tiles, capped at what fits on the
 // device at once); negative: a CUDA error.
 extern "C" int lgbt_partition_grid(int n) {
-  return grid_for(n);
+  return grid_for<1>(n);
 }
 
 // bins_t [F, n] uint8, vals_t [C, n] f32, leaf_old / leaf_new [n] i32; the
@@ -163,18 +189,16 @@ extern "C" int lgbt_partition_move(
     const void* leaf_new, int n, int F, int C, void* out_bins,
     void* out_vals, void* out_leaf, void* cum, void* n_front, void* scratch,
     unsigned epoch, void* stream) {
-  if (n <= 0 || F < 0 || C < 0 || epoch == 0 || epoch >= (1u << 30))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Rows a{static_cast<const char*>(bins_t), static_cast<const char*>(vals_t),
-         static_cast<const char*>(leaf_new), static_cast<char*>(out_bins),
-         static_cast<char*>(out_vals), static_cast<char*>(out_leaf),
-         F, C, 1, n, n};
-  const int grid = grid_for(n);
-  if (grid < 0) return -grid;
-  partition_kernel<<<grid, kThreads, kSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const int32_t*>(leaf_old), n,
-      static_cast<int32_t*>(cum), static_cast<int32_t*>(n_front),
-      static_cast<unsigned char*>(scratch), epoch);
-  return static_cast<int>(cudaGetLastError());
+  return launch<1>(bins_t, vals_t, leaf_old, leaf_new, n, F, C, out_bins,
+                   out_vals, out_leaf, cum, n_front, scratch, epoch, stream);
+}
+
+// The same for uint16 bins_t and out_bins.
+extern "C" int lgbt_partition_move_u16(
+    const void* bins_t, const void* vals_t, const void* leaf_old,
+    const void* leaf_new, int n, int F, int C, void* out_bins,
+    void* out_vals, void* out_leaf, void* cum, void* n_front, void* scratch,
+    unsigned epoch, void* stream) {
+  return launch<2>(bins_t, vals_t, leaf_old, leaf_new, n, F, C, out_bins,
+                   out_vals, out_leaf, cum, n_front, scratch, epoch, stream);
 }

@@ -4,7 +4,8 @@
 //
 // Both kernels move whole columns of
 //
-//   bins [F, n] uint8, vals [C, n] f32 (and, for the move, leaf ids [n] i32)
+//   bins [F, n] uint8 or uint16, vals [C, n] f32 (and, for the move, leaf
+//   ids [n] i32)
 //
 // to the positions a stable partition of the columns gives: the columns of
 // one class keep their source order inside one contiguous run of the
@@ -31,13 +32,19 @@
 //   counters sit in two slots picked by the epoch's parity: a launch uses
 //   its own slot and zeroes the other one, which the next launch on the
 //   stream uses.
-// - Data. Each stage of the tile (four feature rows, or one 4-byte row)
-//   is copied into shared memory with 16-byte cp.async loads, kBufs - 1
-//   stages ahead of the one being moved. The CTA writes each column to its
+// - Data. Each stage of the tile (four uint8 feature rows, two uint16
+//   ones, or one 4-byte row: 4 kTile bytes at most) is copied into shared
+//   memory with 16-byte cp.async loads, kBufs - 1 stages ahead of the one
+//   being moved. The CTA writes each column to its
 //   place in a shared buffer laid out like the destination runs (the four
 //   rows of a stage in one pass over the positions), then stores each run
 //   as 16-byte chunks (the run's partial first and last chunks element by
 //   element, so two tiles whose runs share a chunk write disjoint bytes).
+//
+// The bin rows' element size kBe (1 or 2 bytes) is a template parameter
+// of every function that reads them; the kernels are instantiated for
+// both, and the uint8 instances are the code they were before uint16
+// bins.
 //
 // What bounds it: bytes, and per stage a chain of load, barrier, reorder,
 // barrier, store that a CTA runs in order; the shape (4096-column tiles of
@@ -62,7 +69,7 @@ constexpr int kTile = kThreads * kStrips;        // columns per tile
 constexpr int kInBytes = 4 * kTile;              // one stage: 16 KiB
 constexpr int kBufs = 2;                         // stages in flight + 1
 constexpr int kOutRow = kTile + 64;              // one u8 row, reordered
-constexpr int kOutBytes = 4 * kOutRow;           // four u8 rows or one f32
+constexpr int kOutBytes = 4 * kOutRow;   // four u8, two u16 or one f32 row
 constexpr int kSmemBytes = kBufs * kInBytes + kOutBytes;
 constexpr unsigned short kNone = 0xFFFF;         // column not written
 constexpr int kCounters = 4;                     // per epoch parity
@@ -253,8 +260,9 @@ __device__ __forceinline__ unsigned lookback(unsigned long long* status,
 }
 
 // ---- data ------------------------------------------------------------------
-// The rows that move: F uint8 feature rows, C f32 rows and L (0 or 1) i32
-// leaf rows; row r of a source has stride n elements, of an output on.
+// The rows that move: F feature rows of kBe-byte bin ids, C f32 rows and L
+// (0 or 1) i32 leaf rows; row r of a source has stride n elements, of an
+// output on.
 struct Rows {
   const char* bins;
   const char* vals;
@@ -266,18 +274,23 @@ struct Rows {
   long long n, on;
 };
 
-// A stage: up to four u8 rows (kTile bytes each) or one 4-byte row.
+// A stage: up to 4 / kBe bin rows (kBe kTile bytes each) or one 4-byte
+// row.
+template <int kBe>
 __device__ __forceinline__ int num_stages(const Rows& a) {
-  return (a.F + 3) / 4 + a.C + a.L;
+  constexpr int kPer = 4 / kBe;
+  return (a.F + kPer - 1) / kPer + a.C + a.L;
 }
 
+template <int kBe>
 __device__ __forceinline__ void stage_rows(const Rows& a, int s, int& r0,
                                            int& cnt, int& es) {
-  const int sb = (a.F + 3) / 4;
+  constexpr int kPer = 4 / kBe;
+  const int sb = (a.F + kPer - 1) / kPer;
   if (s < sb) {
-    r0 = 4 * s;
-    cnt = min(4, a.F - r0);
-    es = 1;
+    r0 = kPer * s;
+    cnt = min(kPer, a.F - r0);
+    es = kBe;
   } else {
     r0 = a.F + (s - sb);
     cnt = 1;
@@ -285,14 +298,16 @@ __device__ __forceinline__ void stage_rows(const Rows& a, int s, int& r0,
   }
 }
 
+template <int kBe>
 __device__ __forceinline__ const char* src_row(const Rows& a, int r) {
-  if (r < a.F) return a.bins + static_cast<size_t>(r) * a.n;
+  if (r < a.F) return a.bins + static_cast<size_t>(r) * a.n * kBe;
   if (r < a.F + a.C) return a.vals + static_cast<size_t>(r - a.F) * a.n * 4;
   return a.leaf;
 }
 
+template <int kBe>
 __device__ __forceinline__ char* dst_row(const Rows& a, int r) {
-  if (r < a.F) return a.obins + static_cast<size_t>(r) * a.on;
+  if (r < a.F) return a.obins + static_cast<size_t>(r) * a.on * kBe;
   if (r < a.F + a.C) return a.ovals + static_cast<size_t>(r - a.F) * a.on * 4;
   return a.oleaf;
 }
@@ -310,15 +325,18 @@ __device__ __forceinline__ void copy_row(const char* src, int bytes,
 }
 
 // Start loading stage s of the tile [t0, t0 + cols) into buf (one
-// cp.async group, empty when there is no stage s).
+// cp.async group, empty when there is no stage s); row j of the stage at
+// buf + j * kTile * es.
+template <int kBe>
 __device__ __forceinline__ void issue_stage(const Rows& a, int s,
                                             long long t0, int cols,
                                             char* buf) {
-  if (s < num_stages(a)) {
+  if (s < num_stages<kBe>(a)) {
     int r0, cnt, es;
-    stage_rows(a, s, r0, cnt, es);
+    stage_rows<kBe>(a, s, r0, cnt, es);
     for (int j = 0; j < cnt; ++j)
-      copy_row(src_row(a, r0 + j) + t0 * es, cols * es, buf + j * kTile);
+      copy_row(src_row<kBe>(a, r0 + j) + t0 * es, cols * es,
+               buf + j * kTile * es);
   }
   cp_async_commit();
 }
@@ -345,10 +363,11 @@ __device__ __forceinline__ Layout layout(const char* dst, int es,
 }
 
 // Put each of the thread's columns at its place in the shared output
-// buffers of the stage's CNT rows (row j: input at inb + j * kTile, output
-// at outb + j * kOutRow; one layout for all): local destination d < nf is
-// the front run's element d, d >= nf the back run's element d - nf. The
-// CNT loads of a column issue before its CNT stores.
+// buffers of the stage's CNT rows of T (row j: input at inb + j * kTile *
+// sizeof(T), output at outb + j * kOutRow * sizeof(T); one layout for
+// all): local destination d < nf is the front run's element d, d >= nf the
+// back run's element d - nf. The CNT loads of a column issue before its
+// CNT stores.
 template <typename T, int CNT>
 __device__ __forceinline__ void scatter_rows(
     const char* inb, char* outb, const unsigned short (&ld)[kStrips], int nf,
@@ -362,15 +381,15 @@ __device__ __forceinline__ void scatter_rows(
     T v[CNT];
 #pragma unroll
     for (int j = 0; j < CNT; ++j)
-      v[j] = reinterpret_cast<const T*>(inb + j * kTile)[c];
+      v[j] = reinterpret_cast<const T*>(inb + j * kTile * sizeof(T))[c];
 #pragma unroll
     for (int j = 0; j < CNT; ++j)
-      reinterpret_cast<T*>(outb + j * kOutRow)[p] = v[j];
+      reinterpret_cast<T*>(outb + j * kOutRow * sizeof(T))[p] = v[j];
   }
 }
 
 // Store the stage's CNT rows (row j of the shared buffer at out + j *
-// kOutRow, of the destination at dst + j * row_bytes): the front run's
+// kOutRow * es, of the destination at dst + j * row_bytes): the front run's
 // first nfe elements at column f0 and the back run's nb elements at b0,
 // whole 16-byte chunks as one store, the partial chunks at either end of a
 // run element by element.
@@ -403,7 +422,8 @@ __device__ __forceinline__ void store_rows(const char* out, char* dst,
       uint4 v[CNT];
 #pragma unroll
       for (int j = 0; j < CNT; ++j)
-        v[j] = *reinterpret_cast<const uint4*>(out + j * kOutRow + base * es);
+        v[j] = *reinterpret_cast<const uint4*>(out + j * kOutRow * es
+                                               + base * es);
 #pragma unroll
       for (int j = 0; j < CNT; ++j)
         *reinterpret_cast<uint4*>(g + j * row_bytes) = v[j];
@@ -412,7 +432,7 @@ __device__ __forceinline__ void store_rows(const char* out, char* dst,
 #pragma unroll
       for (int j = 0; j < CNT; ++j)
         for (int b = (max(lo, base) - base) * es; b < b1; ++b)
-          g[j * row_bytes + b] = out[j * kOutRow + base * es + b];
+          g[j * row_bytes + b] = out[j * kOutRow * es + base * es + b];
     }
   }
 }
@@ -422,50 +442,60 @@ __device__ __forceinline__ void store_rows(const char* out, char* dst,
 // columns, the first nfe of them stored) starts at output column f0, the
 // back run (nb columns) at b0. Stage 0 must already be issued into the
 // first input buffer; kBufs - 1 stages are in flight while one is moved.
-// A stage of four feature rows whose output stride is a multiple of 16
-// bytes shares one layout (one pass over the positions for all four);
+// A stage of 4 / kBe bin rows whose output stride is a multiple of 16
+// bytes shares one layout (one pass over the positions for all its rows);
 // otherwise each row is laid out and moved on its own.
+template <int kBe>
 __device__ __forceinline__ void move_tile(const Rows& a, long long t0,
                                           int cols,
                                           const unsigned short (&ld)[kStrips],
                                           int nf, int nfe, long long f0,
                                           long long b0, int nb, char* smem) {
+  constexpr int kPer = 4 / kBe;             // bin rows of a full stage
   char* outb = smem + kBufs * kInBytes;
-  const int S = num_stages(a);
+  const int S = num_stages<kBe>(a);
   for (int s = 1; s < kBufs - 1; ++s)
-    issue_stage(a, s, t0, cols, smem + s * kInBytes);
+    issue_stage<kBe>(a, s, t0, cols, smem + s * kInBytes);
   for (int s = 0; s < S; ++s) {
     // the buffer of stage s - 1, free since the last barrier
-    issue_stage(a, s + kBufs - 1, t0, cols,
-                smem + ((s + kBufs - 1) % kBufs) * kInBytes);
+    issue_stage<kBe>(a, s + kBufs - 1, t0, cols,
+                     smem + ((s + kBufs - 1) % kBufs) * kInBytes);
     cp_async_wait<kBufs - 1>();
     __syncthreads();             // stage s has landed; outb is free
     const char* inb = smem + (s % kBufs) * kInBytes;
     int r0, cnt, es;
-    stage_rows(a, s, r0, cnt, es);
+    stage_rows<kBe>(a, s, r0, cnt, es);
     const long long row_bytes = a.on * es;
-    const int per = cnt == 4 && (row_bytes & 15) == 0 ? 4 : 1;
+    const int per = cnt == kPer && (row_bytes & 15) == 0 ? kPer : 1;
     for (int q = 0; q < cnt; q += per) {
-      const Layout L = layout(dst_row(a, r0 + q), es, f0, b0, nf);
-      if (per == 4)
-        scatter_rows<uint8_t, 4>(inb + q * kTile, outb + q * kOutRow, ld, nf,
-                                 L);
-      else if (es == 1)
-        scatter_rows<uint8_t, 1>(inb + q * kTile, outb + q * kOutRow, ld, nf,
-                                 L);
-      else
+      const Layout L = layout(dst_row<kBe>(a, r0 + q), es, f0, b0, nf);
+      const char* in_q = inb + q * kTile * es;
+      char* out_q = outb + q * kOutRow * es;
+      if (es == 4)
         scatter_rows<uint32_t, 1>(inb, outb, ld, nf, L);
+      else if constexpr (kBe == 1) {
+        if (per == 4)
+          scatter_rows<uint8_t, 4>(in_q, out_q, ld, nf, L);
+        else
+          scatter_rows<uint8_t, 1>(in_q, out_q, ld, nf, L);
+      } else {
+        if (per == 2)
+          scatter_rows<uint16_t, 2>(in_q, out_q, ld, nf, L);
+        else
+          scatter_rows<uint16_t, 1>(in_q, out_q, ld, nf, L);
+      }
     }
     __syncthreads();             // the stage is reordered
     for (int q = 0; q < cnt; q += per) {
-      char* dst = dst_row(a, r0 + q);
+      char* dst = dst_row<kBe>(a, r0 + q);
       const Layout L = layout(dst, es, f0, b0, nf);
+      char* out_q = outb + q * kOutRow * es;
       if (per == 4)
-        store_rows<4>(outb + q * kOutRow, dst, row_bytes, es, f0, b0, nfe, nb,
-                      L);
+        store_rows<4>(out_q, dst, row_bytes, es, f0, b0, nfe, nb, L);
+      else if (per == 2)
+        store_rows<2>(out_q, dst, row_bytes, es, f0, b0, nfe, nb, L);
       else
-        store_rows<1>(outb + q * kOutRow, dst, row_bytes, es, f0, b0, nfe, nb,
-                      L);
+        store_rows<1>(out_q, dst, row_bytes, es, f0, b0, nfe, nb, L);
     }
   }
 }
@@ -473,13 +503,14 @@ __device__ __forceinline__ void move_tile(const Rows& a, long long t0,
 // ---- launch ----------------------------------------------------------------
 // As many CTAs as fit on the device at once (at most `want`, at least 1),
 // after allowing the kernel its dynamic shared memory; worked out once per
-// device. A negative value is a CUDA error of that set-up. `static`: each
-// library that includes this header keeps its own cache (a static local of
-// an inline or template function would be one symbol shared by every
-// loaded library).
-static int resident_grid(const void* kernel, long long want) {
-  constexpr int kMaxDevices = 64;
-  static int cap[kMaxDevices];
+// device into the caller's `cap` (one table per kernel instance: each
+// needs its own shared-memory attribute set, and a static local of an
+// inline or template function would be one symbol shared by every loaded
+// library).
+constexpr int kMaxDevices = 64;
+
+static int resident_grid(const void* kernel, long long want,
+                         int (&cap)[kMaxDevices]) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -static_cast<int>(err);

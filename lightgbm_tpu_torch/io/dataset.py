@@ -4,9 +4,10 @@ Reference: src/io/dataset.cpp, src/io/metadata.cpp,
 include/LightGBM/dataset.h (UNVERIFIED — empty mount, see SURVEY.md banner).
 
 The port of ``lightgbm_tpu/io/dataset.py``: the binned matrix is ONE packed
-``[n_rows, n_used_features]`` uint8 array (every feature has <= 256 bins
-under ``max_bin <= 255``), with the same bin mappers and the same bytes as
-the JAX package. Input is a numpy array, a pandas DataFrame (its
+``[n_rows, n_used_features]`` array, uint8 when every used feature has at
+most 256 bins (``max_bin <= 255``) and uint16 otherwise (wide bins, up to
+65,536 a feature), with the same bin mappers and the same bytes as the JAX
+package. Input is a numpy array, a pandas DataFrame (its
 category-dtype columns are categorical features, binned from their codes;
 the category lists become the model's ``pandas_categorical``), a scipy
 sparse matrix (binned from CSC one column at a time, never densified
@@ -44,6 +45,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
+from ..ops.bins import MAX_BINS_U16, bin_dtype
 from ..utils import log
 from .binning import (BIN_TYPE_CATEGORICAL, MISSING_CODE, BinMapper,
                       _native, mappers_from_params, resolve_ingest_threads)
@@ -241,8 +243,14 @@ class Dataset:
         if self._binned is not None:
             return self._binned.dtype
         if self._ingest is not None:
-            return np.dtype(np.uint8)
+            return self._bins_dtype()
         return self.binned.dtype
+
+    def _bins_dtype(self) -> np.dtype:
+        """uint8 when every used feature has at most 256 bins, else
+        uint16 (the JAX package's rule)."""
+        return bin_dtype(max((self.bin_mappers[f].num_bin
+                              for f in self.used_features), default=2))
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -343,7 +351,8 @@ class Dataset:
         if device is not None:
             from ..ops.ingest import device_ingest
             self._ingest = device_ingest(X, self.bin_mappers,
-                                         self.used_features, device)
+                                         self.used_features, device,
+                                         out_dtype=self._bins_dtype())
             self._binned = None       # the host copy materialises lazily
         else:
             self._binned = self._bin_all_columns(X, sparse)
@@ -415,7 +424,7 @@ class Dataset:
                                      binned_device_bytes, hbm_bytes_limit)
             limit = hbm_bytes_limit()
             est = binned_device_bytes(self.num_data, len(self.used_features),
-                                      1, True)
+                                      self._bins_dtype().itemsize, True)
             # twice the resident size: the ingest arrays and the engine's
             # row-padded copies are alive together at adoption
             if limit and 2 * est > STREAM_HBM_FRACTION * limit:
@@ -435,8 +444,9 @@ class Dataset:
         a time (``values_to_bins``), on a thread pool for large inputs."""
         used = self.used_features
         n_rows = X.shape[0]
+        dtype = self._bins_dtype()
         if not used:
-            return np.zeros((n_rows, 0), dtype=np.uint8)
+            return np.zeros((n_rows, 0), dtype=dtype)
         from ..config import get_param
         threads = resolve_ingest_threads(
             get_param(self.params, "tpu_ingest_threads"))
@@ -454,7 +464,7 @@ class Dataset:
             col[X.indices[sl]] = X.data[sl]
             return col
 
-        out = np.empty((n_rows, len(used)), dtype=np.uint8)
+        out = np.empty((n_rows, len(used)), dtype=dtype)
 
         def bin_one(jf):
             j, f = jf
@@ -472,7 +482,9 @@ class Dataset:
 
     def _bin_matrix_native(self, X: np.ndarray, n_rows: int,
                            threads: int) -> np.ndarray:
-        """The native row-major pass of ``_bin_all_columns``."""
+        """The native row-major pass of ``_bin_all_columns`` (uint8 or
+        uint16 output; columns of more than 256 bounds take its scalar
+        search)."""
         import ctypes as c
         lib = _native()
         used = self.used_features
@@ -491,7 +503,8 @@ class Dataset:
         meta_db = np.array([m.default_bin for m in mappers], dtype=np.int64)
         meta_nb = np.array([m.num_bin for m in mappers], dtype=np.int64)
         col_idx = np.array(used, dtype=np.int64)
-        out = np.empty((n_rows, n_cols), dtype=np.uint8)
+        out = np.empty((n_rows, n_cols), dtype=self._bins_dtype())
+        out_kind = 0 if out.dtype == np.uint8 else 1
         row_stride = X.strides[0] // X.itemsize
 
         def bin_rows(se) -> None:
@@ -506,7 +519,8 @@ class Dataset:
                 meta_db.ctypes.data_as(c.POINTER(c.c_int64)),
                 meta_nb.ctypes.data_as(c.POINTER(c.c_int64)),
                 is_num.ctypes.data_as(c.POINTER(c.c_int32)),
-                c.c_void_p(out.ctypes.data + s * n_cols), 0)  # uint8 out
+                c.c_void_p(out.ctypes.data + s * n_cols * out.itemsize),
+                out_kind)
 
         # ctypes releases the GIL for the call and each row chunk writes
         # a disjoint slice of ``out``, so the pass scales with cores
@@ -525,15 +539,22 @@ class Dataset:
         return out
 
     def _guard_binned_size(self) -> None:
-        """The JAX package's ``_binned_dtype_with_guard`` for uint8 bins
-        alone: refuse more than 256 bins, and fail before allocating a
-        binned matrix that cannot fit in host RAM."""
-        max_num_bin = max((self.bin_mappers[f].num_bin
-                           for f in self.used_features), default=2)
-        if max_num_bin > 256:
-            log.fatal("features with more than 256 bins (max_bin > 255) "
-                      "are not supported by this package yet")
-        est = int(self.num_data) * max(len(self.used_features), 1)
+        """The JAX package's ``_binned_dtype_with_guard``: fail before
+        allocating a binned matrix that cannot fit in host RAM (1 or 2
+        bytes an element). A feature of more than 65,536 bins is FATAL:
+        uint16 cannot hold its ids (the JAX package's cast would wrap
+        them)."""
+        for f in self.used_features:
+            nb = self.bin_mappers[f].num_bin
+            if nb > MAX_BINS_U16:
+                name = (self.feature_names[f] if self.feature_names
+                        else f"Column_{f}")
+                log.fatal(f"feature {name} has {nb} bins: more than "
+                          f"{MAX_BINS_U16} bins (max_bin or "
+                          f"max_bin_by_feature above 65535) is not "
+                          f"supported, as uint16 bin ids cannot hold them")
+        est = (int(self.num_data) * max(len(self.used_features), 1)
+               * self._bins_dtype().itemsize)
         budget = _host_mem_bytes()
         if budget is not None and est > 0.9 * budget:
             log.fatal(

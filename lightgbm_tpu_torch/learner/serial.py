@@ -77,6 +77,7 @@ import numpy as np
 import torch
 
 from ..io.bundling import build_expand_maps
+from ..ops.bins import gather_bins
 from ..ops.histogram import multi_leaf_histogram
 from ..ops.partition import partition_move, slice_spans, span_budgets, \
     update_tables
@@ -353,7 +354,7 @@ def _apply_splits(leaf_vec: torch.Tensor, bins_t: torch.Tensor,
     ln = lane.clamp(min=0)
     feat_r = feat[ln].to(torch.int64)
     pcol_r = bundle.phys_col[feat_r] if bundle is not None else feat_r
-    col = torch.gather(bins_t, 0, pcol_r[None, :])[0].to(torch.int32)
+    col = gather_bins(bins_t, 0, pcol_r[None, :])[0]
     nb_r = num_bin[feat_r]
     if bundle is not None:
         idx = col - bundle.start[feat_r]
@@ -541,8 +542,9 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
     """Grow one tree.
 
     Args:
-      bins_t: ``[F, n]`` uint8 feature-major binned matrix of all rows
-        (with ``cfg.has_bundles``, the physical ``[F_phys, n]`` one).
+      bins_t: ``[F, n]`` uint8 (or, with more than 256 bins, uint16)
+        feature-major binned matrix of all rows (with ``cfg.has_bundles``,
+        the physical ``[F_phys, n]`` one).
       vals: ``[n, 3]`` float32 (grad*mask, hess*mask, count-mask) — or,
         with ``compact_bins_t``, the compacted buffer's ``[n_c, 3]``
         values.
@@ -551,9 +553,9 @@ def grow_tree(bins_t: torch.Tensor, vals: torch.Tensor,
       cfg: static growth config.
       chan_scale: ``[3]`` per-channel scale of quantized histograms
         (``vals`` hold integer levels); None for exact gradients.
-      compact_bins_t: ``[F, n_c]`` uint8 compacted buffer — with
-        ``cfg.hist_compact`` the histograms scan it (its per-row values
-        are ``vals``) while ``leaf_id`` covers all rows.
+      compact_bins_t: ``[F, n_c]`` compacted buffer (``bins_t``'s dtype)
+        — with ``cfg.hist_compact`` the histograms scan it (its per-row
+        values are ``vals``) while ``leaf_id`` covers all rows.
       is_cat: ``[F]`` bool categorical features; read only when
         ``cfg.has_categorical``.
       bundle: the EFB maps of ``bins_t``'s columns; read only when

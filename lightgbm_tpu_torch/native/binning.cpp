@@ -137,18 +137,23 @@ void bin_numeric_column(const void* values, int is_f32, int64_t n,
 // Bin every (numeric) column of a dense row-major matrix in ONE
 // row-major pass — column-at-a-time binning of a [n, F] matrix strides
 // F*itemsize bytes per element and cache-misses every read. When every
-// column has <= 256 bounds (the max_bin=255 norm), the search runs
-// BRANCHLESS over bound tables padded to a fixed 256 doubles,
-// interleaved across the row's columns so the L2 probe latencies
-// overlap (8 fixed steps, conditional-move adds). Non-numeric output
-// columns (is_num[c] == 0) are skipped and filled by the caller. Output is row-major [n_rows,
-// n_cols].
+// column has <= kMaxTable bounds, the search runs BRANCHLESS over bound
+// tables padded to a fixed width T (the smallest power of two, at least
+// 256, that holds every column's bounds: 256 at max_bin 255, 1024 at
+// 1023), interleaved across the row's columns so the L2 probe latencies
+// overlap (log2 T fixed steps, conditional-move adds). Non-numeric output
+// columns (is_num[c] == 0) are skipped and filled by the caller. Output is
+// row-major [n_rows, n_cols].
 //   ub_concat/ub_off: concatenated per-column upper bounds,
 //     column c's bounds live in [ub_off[c], ub_off[c+1]).
 #include <cstdlib>
 #include <cstring>
 
 namespace {
+
+// the widest padded table of the branchless pass (more bounds take the
+// scalar search)
+constexpr int64_t kMaxTable = 4096;
 
 // generic per-element fallback (any bound count)
 inline int64_t SearchClip(const double* ub, int64_t nb, double v) {
@@ -176,21 +181,23 @@ void bin_matrix(const void* X, int is_f32, int64_t n_rows,
   uint16_t* o16 = static_cast<uint16_t*>(out);
   int32_t* o32 = static_cast<int32_t*>(out);
 
-  bool fast = n_cols <= 512;
-  for (int64_t c = 0; c < n_cols && fast; ++c) {
-    if (is_num[c] && ub_off[c + 1] - ub_off[c] > 256) fast = false;
+  int64_t T = 256;                    // the padded table width
+  for (int64_t c = 0; c < n_cols; ++c) {
+    if (!is_num[c]) continue;
+    while (T < ub_off[c + 1] - ub_off[c]) T *= 2;
   }
+  const bool fast = n_cols <= 512 && T <= kMaxTable;
   if (fast) {
-    // padded fixed-depth tables: tab[c] has 256 entries, real bounds
+    // padded fixed-depth tables: tab[c] has T entries, real bounds
     // first, +inf padding after (padding never changes the clipped
     // searchsorted-left result because the real last bound IS +inf)
     double* tab = static_cast<double*>(
-        std::malloc(static_cast<size_t>(n_cols) * 256 * sizeof(double)));
+        std::malloc(static_cast<size_t>(n_cols) * T * sizeof(double)));
     int64_t nb_m1[512];
     for (int64_t c = 0; c < n_cols; ++c) {
-      double* t = tab + c * 256;
+      double* t = tab + c * T;
       const int64_t nb = is_num[c] ? ub_off[c + 1] - ub_off[c] : 1;
-      for (int64_t i = 0; i < 256; ++i) {
+      for (int64_t i = 0; i < T; ++i) {
         t[i] = i < nb ? ub_concat[ub_off[c] + i] : INFINITY;
       }
       nb_m1[c] = nb - 1;
@@ -207,9 +214,9 @@ void bin_matrix(const void* X, int is_f32, int64_t n_rows,
       }
       // branchless searchsorted-left: pos = #bounds < v. NaN compares
       // false everywhere so pos stays 0 and is overwritten below.
-      for (int64_t s = 128; s; s >>= 1) {
+      for (int64_t s = T / 2; s; s >>= 1) {
         for (int64_t c = 0; c < n_cols; ++c) {
-          const double* t = tab + c * 256;
+          const double* t = tab + c * T;
           // mask arithmetic, NOT a ternary: gcc branches the ternary
           // and the 50% mispredicts serialize the probe chain
           pos[c] += s & -static_cast<int64_t>(

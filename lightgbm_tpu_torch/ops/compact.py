@@ -28,6 +28,7 @@ from typing import Tuple
 import torch
 
 from . import kernels
+from .bins import BIN_DTYPES, movable
 
 _LANE = 128  # block write positions are multiples of this (TPU layout)
 
@@ -80,7 +81,8 @@ def compact_by_mask_plain(bins_t: torch.Tensor, vals_t: torch.Tensor,
                           keep: torch.Tensor, out_cols: int
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of the kernel (same contract): positions from
-    one cumsum of the mask, then an indexed copy with a zero tail."""
+    one cumsum of the mask, then an indexed copy with a zero tail (uint16
+    bins through their int16 view)."""
     k = keep.to(torch.bool)
     pos = torch.cumsum(k, 0) - 1                 # kept columns before
     sel = k & (pos < out_cols)
@@ -88,14 +90,14 @@ def compact_by_mask_plain(bins_t: torch.Tensor, vals_t: torch.Tensor,
                         device=bins_t.device)
     out_v = torch.zeros((vals_t.shape[0], out_cols), dtype=vals_t.dtype,
                         device=vals_t.device)
-    out_b[:, pos[sel]] = bins_t[:, sel]
+    movable(out_b)[:, pos[sel]] = movable(bins_t)[:, sel]
     out_v[:, pos[sel]] = vals_t[:, sel]
     return out_b, out_v
 
 
 def _check_inputs(bins_t, vals_t, keep, out_cols):
-    if bins_t.dtype != torch.uint8 or bins_t.dim() != 2:
-        raise ValueError(f"bins_t must be [F, n] uint8, got "
+    if bins_t.dtype not in BIN_DTYPES or bins_t.dim() != 2:
+        raise ValueError(f"bins_t must be [F, n] uint8 or uint16, got "
                          f"{tuple(bins_t.shape)} {bins_t.dtype}")
     F, n = bins_t.shape
     if vals_t.dtype != torch.float32 or vals_t.dim() != 2 \
@@ -122,17 +124,19 @@ def compact_by_mask(bins_t: torch.Tensor, vals_t: torch.Tensor,
     """Compact the kept columns of feature-major arrays.
 
     Args:
-      bins_t: ``[F, n]`` uint8 feature-major binned matrix.
+      bins_t: ``[F, n]`` uint8 or uint16 feature-major binned matrix.
       vals_t: ``[C, n]`` float32 channel-major per-row values.
       keep: ``[n]`` bool or uint8 keep mask (non-zero: kept).
       out_cols: output width (``compaction_out_cols``).
 
     Returns:
-      (``[F, out_cols]`` uint8, ``[C, out_cols]`` float32): kept columns
+      (``[F, out_cols]`` bins of ``bins_t``'s dtype, ``[C, out_cols]``
+      float32): kept columns
       packed contiguously left to right in source order, those past
       ``out_cols`` dropped; the tail is zero. CUDA tensors launch the
       kernel once, which writes every output element
-      (``compact_by_mask.launches`` counts the launches); CPU tensors
+      (``compact_by_mask.launches`` counts the launches, and
+      ``compact_by_mask.launches_u16`` those on uint16 bins); CPU tensors
       take ``compact_by_mask_plain``.
     """
     _check_inputs(bins_t, vals_t, keep, out_cols)
@@ -143,33 +147,37 @@ def compact_by_mask(bins_t: torch.Tensor, vals_t: torch.Tensor,
         raise ValueError(f"no compaction kernel for device {dev}")
     F, n = bins_t.shape
     C = vals_t.shape[0]
-    out_b = torch.empty((F, out_cols), dtype=torch.uint8, device=dev)
+    wide = bins_t.dtype == torch.uint16
+    out_b = torch.empty((F, out_cols), dtype=bins_t.dtype, device=dev)
     out_v = torch.empty((C, out_cols), dtype=torch.float32, device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev)
     scratch, epoch = kernels.scan_scratch(
         stream, lib.lgbt_compact_scratch_bytes(n))
-    rc = lib.lgbt_compact_by_mask(
+    fn = lib.lgbt_compact_by_mask_u16 if wide else lib.lgbt_compact_by_mask
+    rc = fn(
         bins_t.data_ptr(), vals_t.data_ptr(), keep.data_ptr(), n, F, C,
         out_cols, out_b.data_ptr(), out_v.data_ptr(), scratch.data_ptr(),
         epoch, stream.cuda_stream)
     kernels.check(rc, "compact_by_mask")
     kernels.scan_launched(stream, epoch)
     compact_by_mask.launches += 1
+    compact_by_mask.launches_u16 += int(wide)
     return out_b, out_v
 
 
 compact_by_mask.launches = 0
+compact_by_mask.launches_u16 = 0
 
 
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("compact")
-    fn = lib.lgbt_compact_by_mask
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_uint]
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    if lib.lgbt_compact_by_mask.argtypes is None:
+        for fn in (lib.lgbt_compact_by_mask, lib.lgbt_compact_by_mask_u16):
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p] * 3 + [ctypes.c_uint]
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         q = lib.lgbt_compact_scratch_bytes
         q.argtypes = [ctypes.c_int]
         q.restype = ctypes.c_longlong

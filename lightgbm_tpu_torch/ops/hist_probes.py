@@ -41,6 +41,10 @@ NIBBLE_WIDTHS = (16, 32, 64)     # the TPU probe's nb values
 
 def _check(bins_t, vals_t, leaf_id, small_ids, num_bins):
     _check_inputs(bins_t, vals_t, leaf_id, small_ids, num_bins)
+    if bins_t.dtype != torch.uint8:
+        # as their TPU kernels, the probes read byte bins only
+        raise ValueError(f"the probe kernels take uint8 bins, got "
+                         f"{bins_t.dtype}")
     if small_ids.shape[0] > MAX_LANES:
         raise ValueError(f"the probe kernels take at most {MAX_LANES} "
                          f"lanes, got {small_ids.shape[0]}")

@@ -19,7 +19,9 @@ package: f32 mode rounds each value to bf16 and sums in f32 (sums depend
 on the order, so kernel and plain agree to a tolerance); ``int_mode``
 (quantized gradients) sums integer levels exactly in int32 and casts to
 f32 (bit-equal in any order). Rows with a negative leaf id (the -1 rows
-of ``partition.slice_spans`` windows) match no lane.
+of ``partition.slice_spans`` windows) match no lane. Bin ids are uint8 (B
+<= 256) or uint16 (wide bins, B <= 65,536); each dtype has its own
+instance of the kernel.
 """
 from __future__ import annotations
 
@@ -28,14 +30,14 @@ import ctypes
 import torch
 
 from . import kernels
+from .bins import BIN_DTYPES, MAX_BINS_U16, MAX_BINS_U8
 
-MAX_BINS = 256
 MAX_CHANNELS = 8
 
 
 def _check_inputs(bins_t, vals_t, leaf_id, small_ids, num_bins):
-    if bins_t.dtype != torch.uint8 or bins_t.dim() != 2:
-        raise ValueError(f"bins_t must be [F, n] uint8, got "
+    if bins_t.dtype not in BIN_DTYPES or bins_t.dim() != 2:
+        raise ValueError(f"bins_t must be [F, n] uint8 or uint16, got "
                          f"{tuple(bins_t.shape)} {bins_t.dtype}")
     F, n = bins_t.shape
     if vals_t.dtype != torch.float32 or vals_t.dim() != 2 \
@@ -48,8 +50,10 @@ def _check_inputs(bins_t, vals_t, leaf_id, small_ids, num_bins):
     if small_ids.dtype != torch.int32 or small_ids.dim() != 1:
         raise ValueError(f"small_ids must be [K] int32, got "
                          f"{tuple(small_ids.shape)} {small_ids.dtype}")
-    if not 1 <= num_bins <= MAX_BINS:
-        raise ValueError(f"num_bins must be in 1..{MAX_BINS}, got {num_bins}")
+    max_bins = MAX_BINS_U8 if bins_t.dtype == torch.uint8 else MAX_BINS_U16
+    if not 1 <= num_bins <= max_bins:
+        raise ValueError(f"num_bins must be in 1..{max_bins} for "
+                         f"{bins_t.dtype} bins, got {num_bins}")
     if not 1 <= vals_t.shape[0] <= MAX_CHANNELS:
         raise ValueError(f"at most {MAX_CHANNELS} value channels, got "
                          f"{vals_t.shape[0]}")
@@ -96,7 +100,8 @@ def multi_leaf_histogram(bins_t: torch.Tensor, vals_t: torch.Tensor,
     """Histograms of K leaves in one scan.
 
     Args:
-      bins_t: ``[F, n]`` uint8 feature-major binned matrix.
+      bins_t: ``[F, n]`` uint8 (``num_bins`` <= 256) or uint16 (<=
+        65,536) feature-major binned matrix.
       vals_t: ``[C, n]`` float32 per-row values (grad*m, hess*m, count).
       leaf_id: ``[n]`` int32 current leaf of each row.
       small_ids: ``[K]`` int32 leaf ids to histogram. A row with a
@@ -112,7 +117,8 @@ def multi_leaf_histogram(bins_t: torch.Tensor, vals_t: torch.Tensor,
       ``[K, F, B, C]`` float32, on the inputs' device. CPU tensors take
       ``multi_leaf_histogram_plain``; CUDA tensors launch the kernel, one
       launch that writes the f32 output itself
-      (``multi_leaf_histogram.launches`` counts the launches).
+      (``multi_leaf_histogram.launches`` counts the launches, and
+      ``multi_leaf_histogram.launches_u16`` those on uint16 bins).
     """
     _check_inputs(bins_t, vals_t, leaf_id, small_ids, num_bins)
     dev = bins_t.device
@@ -130,19 +136,24 @@ def multi_leaf_histogram(bins_t: torch.Tensor, vals_t: torch.Tensor,
                            device=dev)
     out = torch.empty((K, F, num_bins, C), dtype=torch.float32, device=dev)
     lib = _lib()
+    wide = bins_t.dtype == torch.uint16
+    query, fn = ((lib.lgbt_multi_leaf_histogram_u16_scratch,
+                  lib.lgbt_multi_leaf_histogram_u16) if wide else
+                 (lib.lgbt_multi_leaf_histogram_scratch,
+                  lib.lgbt_multi_leaf_histogram))
     ptrs = (bins_t.data_ptr(), vals_t.data_ptr(), leaf_id.data_ptr())
     stream = torch.cuda.current_stream(dev)
-    scratch = _scratch(stream, lib.lgbt_multi_leaf_histogram_scratch(
-        *ptrs, n, F, C, K, num_bins))
-    rc = lib.lgbt_multi_leaf_histogram(
-        *ptrs, small_ids.data_ptr(), n, F, C, K, num_bins, int(int_mode),
-        scratch.data_ptr(), out.data_ptr(), stream.cuda_stream)
+    scratch = _scratch(stream, query(*ptrs, n, F, C, K, num_bins))
+    rc = fn(*ptrs, small_ids.data_ptr(), n, F, C, K, num_bins, int(int_mode),
+            scratch.data_ptr(), out.data_ptr(), stream.cuda_stream)
     kernels.check(rc, "multi_leaf_histogram")
     multi_leaf_histogram.launches += 1
+    multi_leaf_histogram.launches_u16 += int(wide)
     return out
 
 
 multi_leaf_histogram.launches = 0
+multi_leaf_histogram.launches_u16 = 0
 
 # the kernel's scratch (per-CTA partial histograms), one buffer per
 # stream, grown as needed and kept: its contents never matter between
@@ -162,12 +173,14 @@ def _scratch(stream, nbytes: int) -> torch.Tensor:
 
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("histogram")
-    fn = lib.lgbt_multi_leaf_histogram
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p] * 3)
-        fn.restype = ctypes.c_int
-        q = lib.lgbt_multi_leaf_histogram_scratch
-        q.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-        q.restype = ctypes.c_longlong
+    if lib.lgbt_multi_leaf_histogram.argtypes is None:
+        for fn in (lib.lgbt_multi_leaf_histogram,
+                   lib.lgbt_multi_leaf_histogram_u16):
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p] * 3)
+            fn.restype = ctypes.c_int
+        for q in (lib.lgbt_multi_leaf_histogram_scratch,
+                  lib.lgbt_multi_leaf_histogram_u16_scratch):
+            q.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+            q.restype = ctypes.c_longlong
     return lib

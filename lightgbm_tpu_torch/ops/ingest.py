@@ -12,9 +12,10 @@ chunk i+1 overlaps the copy and assignment of chunk i), every feature is
 bucketized at once against a padded ``[Fu, B]`` bound matrix
 (``torch.searchsorted``), the missing / zero / categorical mappings apply
 on the device, and the result is both layouts the engine holds: the
-row-major ``[n, Fu]`` uint8 ``bins`` and the feature-major ``[Fu, n]``
-uint8 ``bins_t``. The JAX package's assignment is plain XLA (no Pallas
-kernel), so this one is plain torch.
+row-major ``[n, Fu]`` ``bins`` and the feature-major ``[Fu, n]``
+``bins_t``, uint8, or uint16 where a feature has more than 256 bins (the
+JAX package's ``out_dtype``). The JAX package's assignment is plain XLA
+(no Pallas kernel), so this one is plain torch.
 
 Exactness: the device bins are byte-equal to the host ``values_to_bins``
 for every value that float32 represents exactly (float32 input always;
@@ -33,6 +34,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from .bins import bin_dtype
 
 MT_CODE = {"none": 0, "zero": 1, "nan": 2}
 
@@ -208,8 +211,9 @@ def assign_chunk(raw: torch.Tensor, t: _DeviceTables) -> torch.Tensor:
 class DeviceIngestResult:
     """The binned matrix ``device_ingest`` produced, on its device.
 
-    ``bins``: ``[n, Fu]`` uint8 row-major; ``bins_t``: ``[Fu, n]`` uint8
-    feature-major. The engine may swap its row-padded copies in (so the
+    ``bins``: ``[n, Fu]`` row-major; ``bins_t``: ``[Fu, n]`` feature-major;
+    both uint8, or both uint16 (wide bins). The engine may swap its
+    row-padded copies in (so the
     unpadded originals are freed); ``host_binned`` always gives exactly
     the real rows. ``h2d_bytes``, ``chunks`` and ``assign_ms`` (the
     assignment's device time by CUDA events; None on the CPU) describe the
@@ -237,21 +241,29 @@ def chunk_rows_for(n_features: int) -> int:
 
 def device_ingest(X: np.ndarray, bin_mappers, used_features,
                   device: torch.device,
-                  chunk_rows: Optional[int] = None) -> DeviceIngestResult:
+                  chunk_rows: Optional[int] = None,
+                  out_dtype=None) -> DeviceIngestResult:
     """Bin the raw ``[n, F]`` float32/float64 host matrix ``X`` on
-    ``device`` into uint8 bins, chunk by chunk (only ``used_features``
-    columns are read). ``chunk_rows`` defaults to ``chunk_rows_for(Fu)``."""
+    ``device`` into bins of ``out_dtype`` (uint8 or uint16; by default
+    uint8 unless a used feature has more than 256 bins), chunk by chunk
+    (only ``used_features`` columns are read). ``chunk_rows`` defaults to
+    ``chunk_rows_for(Fu)``."""
     used = list(used_features)
     n = int(X.shape[0])
     Fu = len(used)
-    tables = _DeviceTables(build_tables(bin_mappers, used), device)
+    host_tables = build_tables(bin_mappers, used)
+    tables = _DeviceTables(host_tables, device)
     if chunk_rows is None:
         chunk_rows = chunk_rows_for(Fu)
     R = max(min(int(chunk_rows), max(n, 1)), 1)
     col_sel = np.asarray(used, dtype=np.intp)
     take_all = Fu == X.shape[1] and np.array_equal(col_sel, np.arange(Fu))
-    bins = torch.empty((n, Fu), dtype=torch.uint8, device=device)
-    bins_t = torch.empty((Fu, n), dtype=torch.uint8, device=device)
+    if out_dtype is None:
+        out_dtype = bin_dtype(int(host_tables.num_bin.max(initial=2)))
+    tdtype = torch.uint8 if np.dtype(out_dtype) == np.uint8 \
+        else torch.uint16
+    bins = torch.empty((n, Fu), dtype=tdtype, device=device)
+    bins_t = torch.empty((Fu, n), dtype=tdtype, device=device)
     cuda = device.type == "cuda"
     if cuda:
         staging = [torch.empty((R, Fu), dtype=torch.float32,

@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import kernels
+from .bins import BIN_DTYPES, movable
 
 i32 = torch.int32
 Arrays = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -112,11 +113,12 @@ def update_tables(off: torch.Tensor, cnt: torch.Tensor, cum: torch.Tensor,
 def move_rows_plain(bins_t: torch.Tensor, vals_t: torch.Tensor,
                     leaf: torch.Tensor, dest: torch.Tensor,
                     out: Optional[Arrays] = None) -> Arrays:
-    """An exact computed-index scatter ``out[..., dest[r]] = in[..., r]``."""
+    """An exact computed-index scatter ``out[..., dest[r]] = in[..., r]``
+    (uint16 bins through their int16 view)."""
     ob, ov, ol = out if out is not None else _empty_like(bins_t, vals_t,
                                                          leaf)
     d = dest.to(torch.int64)
-    ob[:, d] = bins_t
+    movable(ob)[:, d] = movable(bins_t)
     ov[:, d] = vals_t
     ol[d] = leaf
     return ob, ov, ol
@@ -138,8 +140,8 @@ def _empty_like(bins_t, vals_t, leaf) -> Arrays:
 
 
 def _check_inputs(bins_t, vals_t, leaf_old, leaf_new, out):
-    if bins_t.dtype != torch.uint8 or bins_t.dim() != 2:
-        raise ValueError(f"bins_t must be [F, n] uint8, got "
+    if bins_t.dtype not in BIN_DTYPES or bins_t.dim() != 2:
+        raise ValueError(f"bins_t must be [F, n] uint8 or uint16, got "
                          f"{tuple(bins_t.shape)} {bins_t.dtype}")
     n = bins_t.shape[1]
     if n < 1:
@@ -177,7 +179,7 @@ def partition_move(bins_t: torch.Tensor, vals_t: torch.Tensor,
     """One split batch's stable front/back move of the partitioned source.
 
     Args:
-      bins_t: ``[F, n]`` uint8 feature-major binned matrix.
+      bins_t: ``[F, n]`` uint8 or uint16 feature-major binned matrix.
       vals_t: ``[C, n]`` float32 channel-major values.
       leaf_old: ``[n]`` int32 per-position leaf ids before this round's
         splits; ``leaf_new`` after them. A position whose id changed
@@ -192,7 +194,8 @@ def partition_move(bins_t: torch.Tensor, vals_t: torch.Tensor,
       exact; ``cum`` the ``[n]`` int32 inclusive prefix counts of the moved
       positions (``update_tables``' input). CUDA tensors launch the kernel
       once and read nothing back (``partition_move.launches`` counts the
-      launches); CPU tensors take ``partition_move_plain``.
+      launches, ``partition_move.launches_u16`` those on uint16 bins);
+      CPU tensors take ``partition_move_plain``.
     """
     _check_inputs(bins_t, vals_t, leaf_old, leaf_new, out)
     dev = bins_t.device
@@ -210,7 +213,9 @@ def partition_move(bins_t: torch.Tensor, vals_t: torch.Tensor,
     stream = torch.cuda.current_stream(dev)
     scratch, epoch = kernels.scan_scratch(
         stream, lib.lgbt_partition_scratch_bytes(n))
-    rc = lib.lgbt_partition_move(
+    wide = bins_t.dtype == torch.uint16
+    fn = lib.lgbt_partition_move_u16 if wide else lib.lgbt_partition_move
+    rc = fn(
         bins_t.data_ptr(), vals_t.data_ptr(), leaf_old.data_ptr(),
         leaf_new.data_ptr(), n, F, C, ob.data_ptr(), ov.data_ptr(),
         ol.data_ptr(), cum.data_ptr(), n_front.data_ptr(),
@@ -218,20 +223,22 @@ def partition_move(bins_t: torch.Tensor, vals_t: torch.Tensor,
     kernels.check(rc, "partition_move")
     kernels.scan_launched(stream, epoch)
     partition_move.launches += 1
+    partition_move.launches_u16 += int(wide)
     return (ob, ov, ol), n_front, cum
 
 
 partition_move.launches = 0
+partition_move.launches_u16 = 0
 
 
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("partition")
-    fn = lib.lgbt_partition_move
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * 6 + [ctypes.c_uint]
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    if lib.lgbt_partition_move.argtypes is None:
+        for fn in (lib.lgbt_partition_move, lib.lgbt_partition_move_u16):
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p] * 6 + [ctypes.c_uint]
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         q = lib.lgbt_partition_scratch_bytes
         q.argtypes = [ctypes.c_int]
         q.restype = ctypes.c_longlong

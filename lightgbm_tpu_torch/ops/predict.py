@@ -23,6 +23,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .bins import index_bins
+
 
 def forest_predict_binned(stacked: Dict[str, torch.Tensor],
                           bins: torch.Tensor, feat_num_bin: torch.Tensor,
@@ -37,7 +39,7 @@ def forest_predict_binned(stacked: Dict[str, torch.Tensor],
         to ``[T, Ln]`` and ``leaf_value`` to ``[T, L]``; optionally
         ``is_cat`` ``[T, Ln]`` and ``cat_bitset`` ``[T, Ln, W]`` (int64
         words holding uint32 bit patterns).
-      bins: ``[n, F]`` uint8 binned features.
+      bins: ``[n, F]`` uint8 or uint16 binned features.
       max_depth: the forest's depth (``Tree.leaf_depths``' maximum).
       num_class: K > 0 sums tree t into class ``class_index[t]`` (host
         ints, ``[T]``, required) of an ``[n, K]`` score; 0 sums every tree
@@ -71,7 +73,7 @@ def forest_predict_binned(stacked: Dict[str, torch.Tensor],
     for _ in range(max_depth):
         nd = node.clamp(min=0)
         feat = torch.gather(sf, 1, nd)                        # [T, n]
-        col = bins[rows, feat].to(torch.int32)
+        col = index_bins(bins, rows, feat)
         go_left = torch.where(col == torch.gather(nan_bin, 1, nd),
                               torch.gather(dl, 1, nd),
                               col <= torch.gather(thr, 1, nd))

@@ -44,20 +44,26 @@ from ..utils.fp import f32, fma
 
 NEG_INF = float("-inf")
 
-# XLA's CPU backend computes jnp.cumsum over an axis of up to a few hundred
-# elements as a blocked scan with 16-wide blocks (checked bit for bit for
-# every B <= 264 in tests/test_torch_split.py)
+# XLA's CPU backend computes jnp.cumsum as a blocked scan with 16-wide
+# blocks, applied recursively to the block totals (checked bit for bit for
+# every B <= 264 in tests/test_torch_split.py and at B = 8 to 65,536 in
+# tests/test_torch_wide_bins.py)
 _SCAN_BLOCK = 16
 
 
 def _cumsum_bins(hist_vals: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum over the bin axis (-2) of ``[..., B, C]``, in
     the order XLA's CPU backend sums ``jnp.cumsum``: a sequential prefix
-    inside each 16-bin block, a sequential exclusive prefix of the block
-    totals, then one add. ``torch.cumsum`` sums in another order (in
+    inside each 16-bin block, the exclusive prefix of the block totals
+    (the same scan of the totals, recursively: up to 16 blocks it is
+    sequential), then one add. ``torch.cumsum`` sums in another order (in
     float64 on the CPU, in a parallel scan on the card), which moves
     near-tied split gains by ULPs."""
-    x = hist_vals.movedim(-2, -1)                        # [..., C, B]
+    return _blocked_scan(hist_vals.movedim(-2, -1)).movedim(-1, -2)
+
+
+def _blocked_scan(x: torch.Tensor) -> torch.Tensor:
+    """``_cumsum_bins`` over the last axis."""
     B = x.shape[-1]
     nb = -(-B // _SCAN_BLOCK)
     pad = nb * _SCAN_BLOCK - B
@@ -68,11 +74,13 @@ def _cumsum_bins(hist_vals: torch.Tensor) -> torch.Tensor:
     for j in range(1, _SCAN_BLOCK):
         within[..., j] = within[..., j - 1] + xb[..., j]
     tot = within[..., -1]
-    excl = torch.zeros_like(tot)
-    for j in range(1, nb):
-        excl[..., j] = excl[..., j - 1] + tot[..., j - 1]
-    out = (within + excl[..., None]).reshape(x.shape)[..., :B]
-    return out.movedim(-1, -2)
+    if nb == 1:
+        excl = torch.zeros_like(tot)       # the add still turns -0.0 to +0.0
+    else:
+        incl = _blocked_scan(tot)
+        excl = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]],
+                         dim=-1)
+    return (within + excl[..., None]).reshape(x.shape)[..., :B]
 
 
 @dataclasses.dataclass(frozen=True)

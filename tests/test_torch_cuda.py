@@ -1219,3 +1219,130 @@ def test_device_ingest_on_the_card_equals_the_native_host_pass(cuda_device):
     bst.update()
     assert dev._binned is None
     np.testing.assert_array_equal(dev.binned, host.binned)
+
+
+# ---- wide bins: uint16 bin ids ---------------------------------------------
+@pytest.mark.parametrize("int_mode", [True, False])
+@pytest.mark.parametrize("n,F,B,K", [
+    (1_000_000, 28, 1024, 32),     # two lane groups of 18 lanes
+    (300_001, 3, 1024, 7),         # n % 4 != 0: the scalar path
+    (1_000_000, 2, 4096, 32),      # 8 lane groups of 4
+    (1_000_000, 2, 65_536, 32),    # 4 bin windows a feature, a lane a group
+    (200_000, 1, 65_536, 200),     # more lane groups than SMs: 2 launches
+])
+def test_wide_histogram_kernel_matches_plain(cuda_device, int_mode, n, F, B,
+                                             K):
+    """Kernel A on uint16 bins (ids of 32,768 and above at B = 65,536),
+    with -1 rows and -1 lanes: int mode bit-equal to the plain version;
+    f32 mode within the order tolerance, and bit-equal on exact-sum
+    values."""
+    rng = np.random.default_rng(B + F)
+    bins = torch.from_numpy(rng.integers(0, B, size=(F, n)).astype(
+        np.uint16)).to(cuda_device)
+    vals = (torch.from_numpy(rng.integers(-3, 4, size=(3, n)).astype(
+        np.float32)) if int_mode else torch.randn(3, n)).to(cuda_device)
+    leaf = torch.from_numpy(rng.integers(-1, 40, size=n).astype(
+        np.int32)).to(cuda_device)
+    ids = torch.arange(K, dtype=torch.int32, device=cuda_device)
+    ids[::5] = -1
+    before = (th.multi_leaf_histogram.launches,
+              th.multi_leaf_histogram.launches_u16)
+    out = th.multi_leaf_histogram(bins, vals, leaf, ids, num_bins=B,
+                                  int_mode=int_mode)
+    assert (th.multi_leaf_histogram.launches,
+            th.multi_leaf_histogram.launches_u16) == (before[0] + 1,
+                                                      before[1] + 1)
+    plain = th.multi_leaf_histogram_plain(bins, vals, leaf, ids, num_bins=B,
+                                          int_mode=int_mode)
+    if int_mode:
+        assert torch.equal(out, plain)
+        return
+    tol = 2.0 ** -20 * vals.to(torch.bfloat16).float().abs().sum(1)
+    assert bool(((out - plain).abs() <= tol).all())
+    ev = _exact_f32_vals(rng, 3, n).to(cuda_device)
+    assert torch.equal(
+        th.multi_leaf_histogram(bins, ev, leaf, ids, num_bins=B),
+        th.multi_leaf_histogram_plain(bins, ev, leaf, ids, num_bins=B))
+
+
+@pytest.mark.parametrize("n,F", [(1_000_448, 28), (123_457, 3), (4097, 1)])
+def test_wide_moves_match_plain(cuda_device, n, F):
+    """B and B′ on 2-byte bin rows (ids of 32,768 and above), bit-equal to
+    their plain versions; odd widths take the rows one at a time."""
+    rng = np.random.default_rng(n)
+    bins = torch.from_numpy(rng.integers(0, 65_536, size=(F, n)).astype(
+        np.uint16)).to(cuda_device)
+    vals = torch.randn(4, n, device=cuda_device)
+    keep = torch.rand(n, device=cuda_device) < 0.3
+    out_cols = int(keep.sum()) + 777
+    c0 = tc.compact_by_mask.launches_u16
+    got = tc.compact_by_mask(bins, vals, keep, out_cols)
+    want = tc.compact_by_mask_plain(bins, vals, keep, out_cols)
+    assert tc.compact_by_mask.launches_u16 == c0 + 1
+    assert got[0].dtype == torch.uint16
+    assert torch.equal(got[0].view(torch.int16), want[0].view(torch.int16))
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    old = torch.randint(0, 30, (n,), dtype=torch.int32, device=cuda_device)
+    new = torch.where(torch.rand(n, device=cuda_device) < 0.4, old + 30, old)
+    v3 = vals[:3].contiguous()
+    p0 = tp.partition_move.launches_u16
+    (kb, kv, kl), knf, kcum = tp.partition_move(bins, v3, old, new)
+    (pb, pv, pl), pnf, pcum = tp.partition_move_plain(bins, v3, old, new)
+    assert tp.partition_move.launches_u16 == p0 + 1
+    assert torch.equal(kb.view(torch.int16), pb.view(torch.int16))
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+    assert torch.equal(kl, pl) and torch.equal(kcum, pcum)
+    assert int(knf) == int(pnf)
+
+
+# case -> (rows, params) at max_bin 1023; GOSS from iteration 1/lr = 3
+WIDE_CASES = {
+    "masked": (5000, {"bagging_fraction": 0.7, "bagging_freq": 1}),
+    "exact": (5000, {"use_quantized_grad": False}),
+    "goss": (16_000, {"data_sample_strategy": "goss", "top_rate": 0.1,
+                      "other_rate": 0.05, "tpu_goss_compact": True}),
+    "partition": (5000, {"tpu_hist_partition": "true"}),
+    "categorical": (5000, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_wide_training_card_matches_cpu(cuda_device, case):
+    """max_bin 1023 (uint16 bins) trained on the card and on the CPU from
+    the same data and draws: identical split lines, predictions within
+    1e-5; the card's runs launch the uint16 kernels."""
+    import lightgbm_tpu_torch as lgt
+    n, extra = WIDE_CASES[case]
+    rng = np.random.default_rng(3)
+    X = np.round(rng.normal(size=(n + 1000, 8)), 2)
+    cat = []
+    if case == "categorical":
+        X[:, 7] = rng.integers(0, 1000, size=len(X))
+        cat = [7]
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + (X[:, 7] % 5 == 1)
+         + rng.normal(size=len(X)) > 0).astype(np.float64)
+    keys = ("split_feature", "threshold", "decision_type", "left_child",
+            "right_child", "num_leaves", "cat_threshold")
+    out = {}
+    u16 = (th.multi_leaf_histogram.launches_u16,
+           tc.compact_by_mask.launches_u16, tp.partition_move.launches_u16)
+    for dev in ("cuda", "cpu"):
+        bst = lgt.train(dict({"objective": "binary", "num_leaves": 15,
+                              "max_bin": 1023, "tpu_leaf_batch": 4,
+                              "learning_rate": 0.3,
+                              "use_quantized_grad": True,
+                              "stochastic_rounding": False, "verbosity": -1,
+                              "device_type": dev}, **extra),
+                        lgt.Dataset(X[:n], label=y[:n],
+                                    categorical_feature=cat),
+                        num_boost_round=5, noise=_SameDraws(dev))
+        assert bst.engine.data.bins.dtype == torch.uint16
+        assert bst.engine.use_goss_compact == (case == "goss")
+        out[dev] = ([ln for ln in bst.model_to_string().splitlines()
+                     if ln.split("=", 1)[0] in keys], bst.predict(X[n:]))
+    assert th.multi_leaf_histogram.launches_u16 > u16[0]
+    assert (tc.compact_by_mask.launches_u16 > u16[1]) == (case == "goss")
+    assert (tp.partition_move.launches_u16 > u16[2]) == (case == "partition")
+    assert out["cuda"][0] == out["cpu"][0]
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0,
+                               atol=1e-5)
